@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of svtyper_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # one card: phases 1-8
+    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7
 
 Drives the port's shipped command (``svtyper_tpu_torch.cli.classic``)
-on the card and checks it end to end, in five phases; any failure exits
+on the card and checks it end to end, in eight phases; any failure exits
 non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
@@ -25,7 +26,28 @@ non-zero:
    simulated truth must reach 0.97, and the two outputs must be
    byte-identical; the first 2,048 records through ``TorchEngine`` on
    the card and on the CPU (float32, the plain twin) must give identical
-   integer fields.
+   integer fields. Run 1 saves the library statistics (``-l``) that
+   every later run of the fixture reads;
+6. multi-device: the multi-device dryrun, then the CLI twice with each
+   chunk sharded over every visible card (two shards on ``cuda:0`` when
+   there is one card): byte-identical to phase 5's output, with one GL
+   launch per shard of every chunk (run 1 carries the first use of any
+   card past ``cuda:0``);
+7. multi-host: two CLI processes joined over gloo (``SVT_DIST_*``) on
+   the card(s): rank 0's VCF byte-identical to phase 5's, rank 1's
+   empty;
+8. profile: the CLI with ``--profile`` on the golden example writes a
+   Chrome trace that names the GL kernel.
+
+Each phase that drives the CLI zeroes ``gl_kernel.LAUNCHES`` just before
+and reads it just after (phase 7 reads each process's count from the
+engine's ``gl_launches`` in its ``SVT_CLI_STATS``); the kernel line
+reports their sum.
+
+``--multi-card`` is the check for a host with several cards: it runs
+only the phases that span cards (6 and 7) and the single-card phase 5
+they are compared with, and prints no kernel line (phase 3 measures the
+kernel).
 
 Prints diagnostics, then the card's name and power limit, one JSON line
 describing each kernel, and last the result line
@@ -35,10 +57,12 @@ result when no CUDA device is available.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -52,6 +76,8 @@ CONC_FLOOR = 0.97
 N_ENGINE_CMP = 2048
 GRID_SIZES = (1, 1000, 1024, 65536)
 TIMED_SIZES = (1024, 65536)
+GL_SYMBOL = "gl_rows_kernel"  # the __global__ in csrc/gl_kernel.cu
+RANK_TIMEOUT_S = 600
 
 
 class _RefuseJax:
@@ -143,17 +169,24 @@ def phase_kernel(torch, gl_kernel, parity):
     return max_err, times
 
 
-def run_cli(classic, vcf, bam, out, extra=(), stats=None):
-    """The shipped command, in-process, on the card → wall seconds."""
+def run_cli(classic, vcf, bam, out, extra=(), stats=None, **devices):
+    """The shipped command, in-process, on the card → wall seconds.
+    ``devices`` are ``main``'s ``device``/``devices`` arguments."""
     if stats:
         os.environ["SVT_CLI_STATS"] = stats
     t0 = time.time()
     try:
-        rc = classic.main(["-i", vcf, "-B", bam, "-o", out, *extra])
+        rc = classic.main(["-i", vcf, "-B", bam, "-o", out, *extra],
+                          **devices)
     finally:
         os.environ.pop("SVT_CLI_STATS", None)
     check(rc == 0, "CLI exit code %s" % rc)
     return time.time() - t0
+
+
+def read_bytes(path):
+    with open(path, "rb") as fh:
+        return fh.read()
 
 
 def phase_golden(classic, parity):
@@ -171,6 +204,7 @@ def phase_golden(classic, parity):
     check(not errors, "golden file: %s" % errors[:10])
     log("phase 4: golden file: %d/%d records byte-identical, the rest "
         "within one unit of the last printed digit" % (identical, n_rec))
+    return out
 
 
 def concordance(path, truth):
@@ -194,12 +228,14 @@ def phase_slice(torch, classic, gl_kernel, fixture):
     log("phase 5: simulated %d events at 30x in %.1f s; VCF tiled to %d "
         "records" % (N_EVENTS, time.time() - t0, N_RECORDS))
     n_chunks = -(-N_RECORDS // CHUNK)
+    lib = os.path.join(WORK, "wgs_lib.json")
     runs = []
     for r in (1, 2):
         out = os.path.join(WORK, "wgs_run%d.vcf" % r)
         stats_path = os.path.join(WORK, "stats%d.json" % r)
         gl_kernel.LAUNCHES = 0
-        wall = run_cli(classic, tiled, bam, out, stats=stats_path)
+        wall = run_cli(classic, tiled, bam, out, extra=("-l", lib),
+                       stats=stats_path, device="cuda")
         launches = gl_kernel.LAUNCHES
         with open(stats_path) as fh:
             st = json.load(fh)
@@ -213,14 +249,15 @@ def phase_slice(torch, classic, gl_kernel, fixture):
         vps = N_RECORDS / st["genotype_wall_s"]
         log("phase 5: run %d: %d records, %d chunks, %d GL kernel launches, "
             "GT concordance %.4f; %.1f variants/s over genotyping "
-            "(%.2f s; whole command %.2f s incl. library scan); prep %.3f s, "
+            "(%.2f s; whole command %.2f s incl. library %s); prep %.3f s, "
             "send %.3f s, sync %.3f s; %d reads, %d pairs"
             % (r, N_RECORDS, st["chunks"], launches, conc, vps,
-               st["genotype_wall_s"], wall, st["prep_s"], st["send_s"],
-               st["sync_s"], st["reads"], st["pairs"]))
+               st["genotype_wall_s"], wall, "scan" if r == 1 else "load",
+               st["prep_s"], st["send_s"], st["sync_s"], st["reads"],
+               st["pairs"]))
         runs.append((out, launches))
-    with open(runs[0][0], "rb") as a, open(runs[1][0], "rb") as b:
-        check(a.read() == b.read(), "two runs gave different output")
+    check(read_bytes(runs[0][0]) == read_bytes(runs[1][0]),
+          "two runs gave different output")
     log("phase 5: the two runs are byte-identical")
 
     from svtyper_tpu_torch.gt.engine import TorchEngine
@@ -245,15 +282,168 @@ def phase_slice(torch, classic, gl_kernel, fixture):
     log("phase 5: first %d records, TorchEngine on the card vs the CPU "
         "(float32 twin): int fields identical; max abs float diff %.3g"
         % (N_ENGINE_CMP, float(abs(a[:, 14:] - b[:, 14:]).max())))
-    return runs[0][1]
+    return (bam, tiled, lib, runs[0][0]), runs[0][1] + runs[1][1]
 
 
-def main() -> int:
+def stats_line(st):
+    return ("genotyping %.6f s, prep %.6f s, send %.6f s, sync %.6f s"
+            % (st["genotype_wall_s"], st["prep_s"], st["send_s"],
+               st["sync_s"]))
+
+
+def phase_multidevice(torch, classic, gl_kernel, wgs):
+    """Phase 6 → GL launches of the two CLI runs."""
+    from svtyper_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    bam, tiled, lib, want = wgs
+    n_vis = torch.cuda.device_count()
+    devices = (["cuda:%d" % i for i in range(n_vis)] if n_vis > 1
+               else ["cuda:0", "cuda:0"])
+    dryrun_multichip(len(devices), "cuda:0")
+    total = 0
+    for r in (1, 2):
+        out = os.path.join(WORK, "wgs_multidevice%d.vcf" % r)
+        stats_path = os.path.join(WORK, "stats_multidevice%d.json" % r)
+        gl_kernel.LAUNCHES = 0
+        wall = run_cli(classic, tiled, bam, out, extra=("-l", lib),
+                       stats=stats_path, devices=devices)
+        launches = gl_kernel.LAUNCHES
+        with open(stats_path) as fh:
+            st = json.load(fh)
+        check(read_bytes(out) == read_bytes(want),
+              "multi-device run %d: output differs from phase 5's" % r)
+        check(launches == st["gl_launches"] == st["chunks"] * len(devices),
+              "multi-device run %d: %d GL launches (engine: %d) for %d "
+              "chunks x %d shards" % (r, launches, st["gl_launches"],
+                                      st["chunks"], len(devices)))
+        log("phase 6: run %d: %d shards on %s: byte-identical to phase 5; "
+            "%d chunks, %d GL launches; %s (whole command %.2f s)"
+            % (r, len(devices), ",".join(devices), st["chunks"], launches,
+               stats_line(st), wall))
+        total += launches
+    return total
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+# a rank of the CLI under the smoke's jax refusal
+_RANK = (
+    "import sys; import chip_smoke; "
+    "sys.meta_path.insert(0, chip_smoke._RefuseJax()); "
+    "from svtyper_tpu_torch.cli.classic import main; "
+    "sys.exit(main(sys.argv[1:]))"
+)
+
+
+def phase_multihost(torch, wgs):
+    """Phase 7: two gloo ranks → their summed GL launches."""
+    bam, tiled, lib, want = wgs
+    port = free_port()
+    procs, outs, stats, errs = [], [], [], []
+    t0 = time.time()
+    try:
+        for rank in (0, 1):
+            outs.append(os.path.join(WORK, "wgs_rank%d.vcf" % rank))
+            stats.append(os.path.join(WORK, "stats_rank%d.json" % rank))
+            errs.append(os.path.join(WORK, "rank%d.err" % rank))
+            env = dict(
+                os.environ, PYTHONPATH=ROOT,
+                SVT_DIST_COORD="127.0.0.1:%d" % port,
+                SVT_DIST_NPROCS="2", SVT_DIST_PROCID=str(rank),
+                SVT_CLI_STATS=stats[-1],
+            )
+            with open(errs[-1], "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _RANK, "-i", tiled, "-B", bam,
+                     "-o", outs[-1], "-l", lib],
+                    cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err,
+                ))
+        deadline = time.time() + RANK_TIMEOUT_S
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(deadline - time.time(), 1)))
+            except subprocess.TimeoutExpired:
+                rcs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    for rank, rc in enumerate(rcs):
+        if rc != 0:
+            with open(errs[rank]) as fh:
+                tail = fh.read()[-3000:]
+            check(False, "multi-host rank %d: exit %s\n%s" % (rank, rc, tail))
+    check(read_bytes(outs[0]) == read_bytes(want),
+          "multi-host rank 0 output differs from phase 5's")
+    check(os.path.getsize(outs[1]) == 0, "multi-host rank 1 wrote output")
+    n_dev = torch.cuda.device_count()
+    total = 0
+    for rank in (0, 1):
+        with open(stats[rank]) as fh:
+            st = json.load(fh)
+        check(st["gl_launches"] == st["chunks"] * n_dev > 0,
+              "multi-host rank %d: %d GL launches for %d chunks"
+              % (rank, st["gl_launches"], st["chunks"]))
+        total += st["gl_launches"]
+        log("phase 7: rank %d: %d chunks, %d GL launches; %s, gather %.6f s "
+            "(whole command %.2f s)"
+            % (rank, st["chunks"], st["gl_launches"], stats_line(st),
+               st["gather_s"], st["total_wall_s"]))
+    log("phase 7: 2 ranks over gloo: rank 0 byte-identical to phase 5, "
+        "rank 1 empty; both processes %.2f s" % wall)
+    return total
+
+
+def phase_profile(classic, gl_kernel, golden_out):
+    """Phase 8 → GL launches of the profiled run."""
+    data = os.path.join(ROOT, "data")
+    prof = os.path.join(WORK, "profile")
+    out = os.path.join(WORK, "example_profiled.vcf")
+    gl_kernel.LAUNCHES = 0
+    wall = run_cli(classic, os.path.join(data, "example.vcf"),
+                   os.path.join(data, "example.sim.sorted.bam"), out,
+                   extra=("-n", "60000", "--profile", prof))
+    launches = gl_kernel.LAUNCHES
+    check(launches > 0, "profiled run launched no GL kernel")
+    check(read_bytes(out) == read_bytes(golden_out),
+          "profiled output differs from phase 4's")
+    traces = os.listdir(prof)
+    check(len(traces) == 1, "profile dir holds %s" % traces)
+    with open(os.path.join(prof, traces[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    gl = [e for e in events if GL_SYMBOL in e.get("name", "")]
+    check(len(gl) > 0, "the trace does not name %s" % GL_SYMBOL)
+    log("phase 8: --profile wrote %s (%d events); %d %s events for %d "
+        "launches, %.1f us in all; whole command %.2f s"
+        % (traces[0], len(events), len(gl), GL_SYMBOL, launches,
+           sum(e.get("dur", 0) for e in gl), wall))
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--multi-card", action="store_true",
+                    help="phases 1, 2 and 5-7 on a host with two or more "
+                         "cards")
+    multi_card = ap.parse_args(argv).multi_card
     sys.meta_path.insert(0, _RefuseJax())
     import torch
 
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    if multi_card and torch.cuda.device_count() < 2:
+        print("FAIL: --multi-card needs two or more cards, found %d"
+              % torch.cuda.device_count(), file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from svtyper_tpu_torch.cli import classic
@@ -274,10 +464,21 @@ def main() -> int:
         % (_build.build("gl_kernel"), time.time() - t0,
            " ".join(_build.NVCC_FLAGS)))
 
-    max_err, times = phase_kernel(torch, gl_kernel, parity)
-    phase_golden(classic, parity)
-    launches = phase_slice(torch, classic, gl_kernel, fixture)
+    if not multi_card:
+        max_err, times = phase_kernel(torch, gl_kernel, parity)
+        golden_out = phase_golden(classic, parity)
+    wgs, launches = phase_slice(torch, classic, gl_kernel, fixture)
+    launches += phase_multidevice(torch, classic, gl_kernel, wgs)
+    launches += phase_multihost(torch, wgs)
+    if not multi_card:
+        launches += phase_profile(classic, gl_kernel, golden_out)
     check("jax" not in sys.modules, "jax was imported")
+    if multi_card:
+        log("multi-card: phases 5-7 ok on %d cards, %d GL launches"
+            % (torch.cuda.device_count(), launches))
+        log(smi)
+        log(json.dumps(result_line(torch)))
+        return 0
 
     k_ms, p_ms = times[CHUNK]
     kernels = [{
@@ -294,15 +495,19 @@ def main() -> int:
           "non-finite kernel numbers")
     log(smi)
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({
+    log(json.dumps(result_line(torch)))
+    return 0
+
+
+def result_line(torch):
+    return {
         "ok": True,
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
         },
-    }))
-    return 0
+    }
 
 
 if __name__ == "__main__":

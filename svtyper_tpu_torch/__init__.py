@@ -11,9 +11,11 @@ package's:
                 ``gl_kernel`` (the hand-written CUDA kernel for Hopper
                 and its plain twin); ``csrc/`` holds the CUDA source.
 - ``evidence``  ``classify_compact``: compact wire → ``[N,5]`` counts.
-- ``gt``        ``TorchEngine``, the chunked streaming engine.
+- ``gt``        ``TorchEngine``, the chunked streaming engine, sharded
+                over one or more devices.
 - ``cli``       the ``svtyper`` / ``svtyper-sso`` command lines.
-- ``parallel``  ``shard_slices`` for ``--num_shards``.
+- ``parallel``  ``shard_slices``, the ``SVT_DIST_*`` multi-host gather
+                over gloo, and the multi-device dryrun.
 - ``utils``     format-precision parity checks shared by the tests and
                 ``chip_smoke.py``.
 """

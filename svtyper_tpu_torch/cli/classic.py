@@ -2,10 +2,11 @@
 ``classic.py::main/sv_genotype``, SURVEY.md §2.2–2.3).
 
 Counterpart of ``svtyper_tpu.cli.classic``: the same flags, chunking,
-BND mate sharing, checkpoint/resume, ``-w`` and ``--num_shards``, with
-``--engine torch`` (the default) driving ``gt.engine.TorchEngine`` on
-one device, CUDA unless the library caller passes another. Not ported
-yet: the ``SVT_DIST_*`` multi-host mode and ``--profile``, which raise.
+BND mate sharing, checkpoint/resume, ``-w``, ``--num_shards``,
+``--profile`` and the ``SVT_DIST_*`` multi-host mode, with ``--engine
+torch`` (the default) driving ``gt.engine.TorchEngine`` over every
+visible CUDA device, unless the library caller passes ``device`` or
+``devices``.
 
     python -m svtyper_tpu_torch.cli.classic -i in.vcf -B s.bam -o out.vcf
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import sys
 import time
 from typing import IO, List, Optional
@@ -77,7 +79,8 @@ def get_args(argv=None):
     p.add_argument("--cores", type=int, default=None,
                    help="host-side prep threads (default: auto)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="profiler trace of the run (not yet ported: raises)")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "(CPU, plus CUDA on the card) to DIR")
     p.add_argument("--checkpoint_dir", default=None, metavar="DIR",
                    help="spill each genotyped chunk to DIR and resume a killed "
                         "run at chunk granularity (same input + batch_size)")
@@ -114,18 +117,41 @@ def sv_genotype(
     cores: Optional[int] = None,
     device=None,
     dtype=None,
+    devices=None,
 ) -> None:
     """Library entry point (parity of ``classic.py::sv_genotype``).
 
-    ``device`` is the torch engine's device (None → "cuda"); ``dtype``
-    its float type (None → float32 on CUDA, float64 on the CPU)."""
+    ``device`` (one) or ``devices`` (a list, repeats allowed) are the
+    torch engine's devices, every visible CUDA device when both are
+    None; ``dtype`` its float type (None → float32 on CUDA, float64 on
+    the CPU).
+
+    Multi-host mode: with ``SVT_DIST_COORD`` (``host:port`` of rank 0)
+    and ``SVT_DIST_NPROCS`` set, each process (rank ``SVT_DIST_PROCID``)
+    genotypes its contiguous slice, the fixed-width result rows are
+    all-gathered over gloo, and rank 0 formats and writes the single
+    VCF; the caller leaves the group with ``multihost.destroy()``."""
     t0 = time.time()
-    if os.environ.get("SVT_DIST_COORD") or os.environ.get("SVT_DIST_NPROCS"):
-        raise RuntimeError(
-            "SVT_DIST_* multi-host mode is not ported to svtyper_tpu_torch "
-            "yet: unset SVT_DIST_COORD/SVT_DIST_NPROCS, or split the run "
-            "with --num_shards/--shard_index"
+    from svtyper_tpu_torch.parallel.multihost import (
+        allgather_rows,
+        initialize_from_env,
+        shard_slices,
+    )
+
+    dist_coord = os.environ.get("SVT_DIST_COORD")
+    dist_nprocs = os.environ.get("SVT_DIST_NPROCS")
+    if dist_coord and dist_nprocs:
+        if num_shards != 1:
+            raise ValueError(
+                "--num_shards is manual sharding; incompatible with "
+                "SVT_DIST_* automatic multihost mode"
+            )
+        proc_id, n_procs = initialize_from_env(
+            dist_coord, int(dist_nprocs),
+            int(os.environ.get("SVT_DIST_PROCID", "0")),
         )
+    else:
+        proc_id, n_procs = 0, 1
     bam_paths = [b for b in bam_string.split(",") if b]
     # --cores drives the native decoder's per-fetch thread fan-out (the
     # role of the reference sso's fork pool: host-side parallelism)
@@ -168,8 +194,25 @@ def sv_genotype(
             samples, min_aligned=min_aligned, split_weight=split_weight,
             disc_weight=disc_weight, max_reads=max_reads,
             max_ci_dist=max_ci_dist, chunk_size=batch_size,
-            prep_workers=cores, device=device or "cuda", dtype=dtype,
+            prep_workers=cores, device=device, dtype=dtype,
+            devices=devices,
         )
+        if engine.chunk_size != batch_size:
+            # multi-device engines round the chunk size up to a device
+            # multiple; aligning the CLI's chunking to it keeps plan
+            # chunks 1:1 with engine chunks, so the vectorized emission
+            # and the -w engine-export arena stay engaged on sharded
+            # runs (the effective value is what the checkpoint manifest
+            # records — a resume under a different device count would
+            # otherwise replay mismatched chunk boundaries)
+            sys.stderr.write(
+                "note: batch size %d rounded to %d (device multiple)\n"
+                % (batch_size, engine.chunk_size)
+            )
+            batch_size = engine.chunk_size
+
+        def run_chunk(bps):
+            return engine.genotype_chunk(bps)
 
     # the body start for get_body() re-streams must be the stream's
     # CURRENT position, not byte 0 — a library caller may hand us a
@@ -273,7 +316,7 @@ def sv_genotype(
                     "batch_size": batch_size,
                     "num_shards": num_shards,
                     "shard_index": shard_index,
-                    "n_procs": 1,
+                    "n_procs": n_procs,
                     # engines are byte-identical on the f64 parity
                     # config but may differ at format-rounding
                     # boundaries in f32 — never mix their chunks
@@ -282,6 +325,203 @@ def sv_genotype(
                 },
             ),
         )
+
+    t_gt = time.time()
+    gather_s = 0.0
+    if n_procs > 1:
+        # phase 1 (every process): genotype this host's contiguous
+        # variant slice; ship fixed-width rows through the collective
+        import numpy as np
+
+        from svtyper_tpu.cli.checkpoint import (
+            load_rows,
+            rows_part_path,
+            save_rows,
+        )
+        from svtyper_tpu_torch.gt.engine import (
+            ROW_WIDTH,
+            result_to_row,
+            row_to_result,
+        )
+
+        slices = shard_slices(n_records, n_procs)
+        lo, hi = slices[proc_id]
+        rounds_per_host = [
+            -(-(s1 - s0) // batch_size) if s1 > s0 else 0
+            for (s0, s1) in slices
+        ]
+        max_rounds = max(rounds_per_host) if rounds_per_host else 0
+        body_p1 = itertools.islice(get_body(), lo, hi)
+
+        def slice_plans():
+            # per-chunk row spill (pre-gather): a restarted shard
+            # replays completed chunks from disk and recomputes only
+            # the remainder, so the all-gathered row stream stays
+            # synchronized across hosts
+            for c0 in range(lo, hi, batch_size):
+                k = min(c0 + batch_size, hi) - c0
+                part = (
+                    rows_part_path(checkpoint_dir, proc_id, c0)
+                    if checkpoint_dir else None
+                )
+                cached = load_rows(part) if part else None
+                if cached is not None:
+                    for _ in itertools.islice(body_p1, k):
+                        pass  # advance the stream past the cached chunk
+                    yield None, cached, part
+                    continue
+                chunk_vars = [
+                    Variant(line, vcf)
+                    for line in itertools.islice(body_p1, k)
+                ]
+                # registry.resolve gives BOTH mates of a BND pair the
+                # same anchor breakpoint, so hosts compute identical
+                # rows even when a pair straddles a shard boundary
+                yield [registry.resolve(v) for v in chunk_vars], None, part
+
+        def encode_rows(res):
+            arr = np.zeros(
+                (len(res), len(sample_names), ROW_WIDTH), dtype=np.float64
+            )
+            for j, row in enumerate(res):
+                for s, r in enumerate(row):
+                    arr[j, s] = result_to_row(r)
+            return arr
+
+        # Bounded gather: ONE collective per chunk round instead of a
+        # single whole-slice all-gather — no host ever holds more than
+        # one round of foreign rows in memory. Host 0 spills each
+        # gathered round to disk and streams it back in phase 2; hosts
+        # that run out of chunks keep participating with empty arrays
+        # so the collective count matches everywhere.
+        import tempfile
+
+        gather_dir = (
+            tempfile.mkdtemp(prefix="svt_gather_") if proc_id == 0 else None
+        )
+        _round = [0]
+        empty_rows = np.zeros(
+            (0, len(sample_names), ROW_WIDTH), np.float64
+        )
+
+        def gather_round(arr):
+            nonlocal gather_s
+            tg = time.time()
+            shards_r = allgather_rows(arr)
+            gather_s += time.time() - tg
+            if proc_id == 0:
+                for h, rows_h in enumerate(shards_r):
+                    np.save(
+                        os.path.join(
+                            gather_dir,
+                            "g_h%03d_r%06d.npy" % (h, _round[0]),
+                        ),
+                        rows_h,
+                    )
+            _round[0] += 1
+
+        if engine_kind == "torch":
+            # pipelined drive (same rationale as the single-host stream
+            # below): feed every to-compute chunk through genotype_stream
+            # and take its packed rows as they surface. Plan chunks and
+            # engine chunks are 1:1: every to-compute chunk but the
+            # slice's last is batch_size (= engine.chunk_size) long.
+            plans_feed, plans_fmt = itertools.tee(slice_plans())
+
+            def feed():
+                for bps_chunk, cached, _p in plans_feed:
+                    if cached is None:
+                        yield from bps_chunk
+
+            raw_stream = engine.genotype_stream(feed(), raw=True)
+            for bps_chunk, cached, part in plans_fmt:
+                if cached is None:
+                    n_r, per_sample = next(raw_stream)
+                    assert n_r == len(bps_chunk), (n_r, len(bps_chunk))
+                    # the packed rows decode (row_to_result) exactly as
+                    # result_to_row's do
+                    cached = np.stack(
+                        [ps[:n_r] for ps in per_sample], axis=1
+                    ).astype(np.float64)
+                    if part:
+                        save_rows(part, cached)
+                gather_round(cached)
+                crash.chunk_done()
+        else:
+            for bps_chunk, cached, part in slice_plans():
+                if cached is None:
+                    cached = encode_rows(run_chunk(bps_chunk))
+                    if part:
+                        save_rows(part, cached)
+                gather_round(cached)
+                crash.chunk_done()
+        for _ in range(_round[0], max_rounds):
+            gather_round(empty_rows)
+        if verbose:
+            sys.stderr.write(
+                "host %d/%d: genotyped slice [%d:%d) in %d gather "
+                "rounds (%.2fs in the gather)\n"
+                % (proc_id, n_procs, lo, hi, _round[0], gather_s)
+            )
+        if proc_id != 0:
+            # host 0 owns formatting + the single ordered write
+            if hasattr(engine, "close"):
+                engine.close()
+            _write_stats(engine, 0, t_gt, t0, None, gather_s)
+            return
+
+        # phase 2 (host 0 only): replay the ordinary formatting pipeline
+        # (BND mate sharing, QUAL aggregation, FORMAT emission) over the
+        # full record stream with genotyping replaced by a bounded
+        # streaming read of the gathered rows. Host-major file order ==
+        # global input order (slices are contiguous and ordered).
+        class _RowReader:
+            def __init__(self, paths):
+                self._paths = iter(paths)
+                self._cur = None
+                self._off = 0
+
+            def take(self, k):
+                parts = []
+                need = k
+                while need > 0:
+                    if self._cur is None or self._off >= len(self._cur):
+                        self._cur = np.load(next(self._paths))
+                        self._off = 0
+                        continue
+                    t = min(need, len(self._cur) - self._off)
+                    parts.append(self._cur[self._off: self._off + t])
+                    self._off += t
+                    need -= t
+                if not parts:
+                    return empty_rows
+                return (
+                    parts[0] if len(parts) == 1
+                    else np.concatenate(parts, axis=0)
+                )
+
+        _reader = _RowReader(
+            [
+                os.path.join(gather_dir, "g_h%03d_r%06d.npy" % (h, r))
+                for h in range(n_procs)
+                for r in range(max_rounds)
+            ]
+        )
+
+        def run_chunk(bps_chunk, _rd=_reader):
+            rows = _rd.take(len(bps_chunk))
+            return [
+                [
+                    row_to_result(rows[j, s])
+                    for s in range(len(sample_names))
+                ]
+                for j in range(len(bps_chunk))
+            ]
+
+        # flush()'s checkpoint replay skips run_chunk for a finished
+        # chunk; the row cursor must still advance past that chunk's
+        # rows or every later variant reads an earlier variant's row
+        run_chunk.skip_rows = lambda n, _rd=_reader: _rd.take(n)
 
     if shard_index == 0:
         # shards >0 emit body-only so that `cat shard0 shard1 ...` is
@@ -297,12 +537,15 @@ def sv_genotype(
         # engine-export fast path: the native chunk fetch records every
         # kept row's location during genotyping prep, so -w costs no
         # second decode pass (falls back to the batched re-fetch when
-        # any sample lacks native support — CRAM, pure-Python); engine
-        # chunks are the CLI's chunk plans, keeping the writer's
-        # per-chunk flag FIFO 1:1 with them
+        # any sample lacks native support — CRAM, pure-Python — or in
+        # multihost mode); batch_size was aligned to the engine's
+        # device-rounded chunk size, keeping the writer's per-chunk flag
+        # FIFO 1:1 with the CLI's chunk plans
         fallback_why = None
         if engine_kind != "torch":
             fallback_why = "oracle engine has no decode arena"
+        elif n_procs != 1:
+            fallback_why = "multihost run (per-host arenas not merged)"
         if fallback_why is None:
             toggles = [
                 getattr(s.bam, "set_evidence_export", lambda v: False)
@@ -334,7 +577,6 @@ def sv_genotype(
 
     n_done = 0
     chunk_idx = 0
-    t_gt = time.time()
     t_first_chunk = [None]  # wall time when the first chunk emitted
     pending: List[Variant] = []
     # BND mate pairing (SPEC.md §2, §8.8): each breakend event is
@@ -373,6 +615,11 @@ def sv_genotype(
             # plain resolve (no bnd_computed mutation): mates share the
             # anchor breakpoint and close() dedups by voffset
             writer_bams.add_batch([registry.resolve(v) for v in vars_])
+        # phase-2 multihost replay: the gathered-row cursor must
+        # advance past the replayed chunk's rows
+        skip = getattr(run_chunk, "skip_rows", None)
+        if skip is not None:
+            skip(len(vars_))
         n_done += len(vars_)
         crash.chunk_done()
 
@@ -478,8 +725,6 @@ def sv_genotype(
     # contiguous variant sharding (--num_shards): this process emits only
     # the records of its shard, in input order; shard outputs concatenate
     # to the single-process output byte-for-byte
-    from svtyper_tpu_torch.parallel.multihost import shard_slices
-
     body_emit = get_body()
     if num_shards > 1:
         # the BND registry was built from the FULL body above, so a
@@ -488,7 +733,7 @@ def sv_genotype(
         lo, hi = shard_slices(n_records, num_shards)[shard_index]
         body_emit = itertools.islice(body_emit, lo, hi)
 
-    if engine_kind == "torch":
+    if engine_kind == "torch" and n_procs == 1:
         # streaming drive: chunk PLANS feed the engine's pipelined
         # genotype_stream (prep thread / async dispatch / collect
         # thread), while this loop formats chunks in input order as
@@ -565,8 +810,8 @@ def sv_genotype(
             if use_fast:
                 n_r, per_sample = next(raw_stream)
                 first_done.set()
-                # plan chunks and engine chunks are 1:1 (both are
-                # batch_size long)
+                # plan chunks and engine chunks are 1:1 (batch_size
+                # was aligned to engine.chunk_size above)
                 assert n_r == len(vars_), (n_r, len(vars_))
                 out_lines = format_chunk_lines(
                     vars_, bps, per_sample, sample_names, sum_quals,
@@ -586,6 +831,8 @@ def sv_genotype(
         flush()
     if writer_bams is not None:
         writer_bams.close()
+    if n_procs > 1:
+        shutil.rmtree(gather_dir, ignore_errors=True)
     if hasattr(engine, "close"):
         engine.close()  # release the multi-sample prep pool promptly
     if verbose and hasattr(engine, "stats"):
@@ -599,45 +846,69 @@ def sv_genotype(
                st["reads"], st["pairs"], st["chunks"],
                st["prep_s"], st["send_s"], st["sync_s"])
         )
+    _write_stats(engine, n_done, t_gt, t0, t_first_chunk[0],
+                 gather_s if n_procs > 1 else None)
+
+
+def _write_stats(engine, n_done, t_gt, t0, t_first, gather_s) -> None:
+    """Machine-readable run stats to ``$SVT_CLI_STATS`` (chip_smoke.py
+    reads them): genotype_wall_s covers parse → last write, total_wall_s
+    adds sample bootstrap; n_done counts emitted records (replayed
+    checkpoint chunks included, 0 on a multihost rank that writes
+    nothing); gather_s is the time in the multihost all-gather; the
+    engine's stats add gl_launches, its CUDA GL kernel launches."""
     stats_path = os.environ.get("SVT_CLI_STATS")
-    if stats_path:
-        # machine-readable run stats (chip_smoke.py reads them):
-        # genotype_wall_s covers parse → last
-        # write, total_wall_s adds sample bootstrap; n_done counts
-        # emitted records (replayed checkpoint chunks included)
-        import json as _json
+    if not stats_path:
+        return
+    import json
 
-        payload = {
-            "n_variants": n_done,
-            "genotype_wall_s": time.time() - t_gt,
-            "total_wall_s": time.time() - t0,
-            "first_chunk_s": (
-                (t_first_chunk[0] - t_gt) if t_first_chunk[0] else None
-            ),
-        }
-        if hasattr(engine, "stats"):
-            payload.update(
-                {k: engine.stats[k]
-                 for k in ("prep_s", "send_s", "sync_s", "reads", "pairs",
-                           "chunks")}
-            )
-        from svtyper_tpu.bamio.native import perf_counters
+    from svtyper_tpu.bamio.native import perf_counters
 
-        payload["native_perf"] = perf_counters()
-        with open(stats_path, "w") as fh:
-            _json.dump(payload, fh)
-
-
-def main(argv=None, device=None) -> int:
-    """CLI entry point; ``device`` None → "cuda"."""
-    args = get_args(argv)
-    if args.profile:
-        raise NotImplementedError(
-            "--profile is not yet ported to svtyper_tpu_torch (ROADMAP)"
+    now = time.time()
+    payload = {
+        "n_variants": n_done,
+        "genotype_wall_s": now - t_gt,
+        "total_wall_s": now - t0,
+        "first_chunk_s": (t_first - t_gt) if t_first else None,
+        "gather_s": gather_s,
+    }
+    if hasattr(engine, "stats"):
+        payload.update(
+            {k: engine.stats[k]
+             for k in ("prep_s", "send_s", "sync_s", "reads", "pairs",
+                       "chunks", "gl_launches")}
         )
+    payload["native_perf"] = perf_counters()
+    with open(stats_path, "w") as fh:
+        json.dump(payload, fh)
+
+
+def _profiler(device, devices):
+    """A ``torch.profiler`` over the CPU, plus CUDA when the engine runs
+    there (its device defaults to CUDA, as the engine's does)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    first = devices[0] if devices else (device or "cuda")
+    activities = [ProfilerActivity.CPU]
+    if torch.device(first).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
+
+
+def main(argv=None, device=None, devices=None) -> int:
+    """CLI entry point; ``device``/``devices`` as in :func:`sv_genotype`
+    (both None → every visible CUDA device)."""
+    from svtyper_tpu_torch.parallel import multihost
+
+    args = get_args(argv)
     vcf_in = open_vcf_input(args.input_vcf) if args.input_vcf \
         else sys.stdin
     vcf_out = open(args.output_vcf, "w") if args.output_vcf else sys.stdout
+    prof = None
+    if args.profile:
+        prof = _profiler(device, devices)
+        prof.start()
     try:
         sv_genotype(
             args.bam,
@@ -662,8 +933,16 @@ def main(argv=None, device=None) -> int:
             shard_index=args.shard_index,
             cores=args.cores,
             device=device,
+            devices=devices,
         )
     finally:
+        multihost.destroy()
+        if prof is not None:
+            prof.stop()
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                args.profile, "svtyper_torch.%d.trace.json" % os.getpid()
+            ))
         if args.input_vcf:
             vcf_in.close()
         if args.output_vcf:

@@ -59,7 +59,7 @@ def get_args(argv=None):
 
 
 def main(argv=None, device=None) -> int:
-    """CLI entry point; ``device`` None → "cuda"."""
+    """CLI entry point; ``device`` None → every visible CUDA device."""
     args = get_args(argv)
     if "," in args.bam:
         sys.stderr.write("svtyper-sso genotypes exactly one sample\n")

@@ -1,11 +1,14 @@
-"""TorchEngine: chunked genotyping on one PyTorch device.
+"""TorchEngine: chunked genotyping on one or more PyTorch devices.
 
-Counterpart of ``svtyper_tpu.gt.engine.TpuEngine`` on the single-device
-path. The host prepares each chunk's compact wire (native
-``svt_fetch_chunk`` through ``svtyper_tpu.evidence.extract``), ships it
-as ONE uint8 buffer and one host-to-device copy, and one device step
-runs unwire → ``classify_compact`` → the GL stage, producing the packed
-``[N,24]`` rows that ``cli/fast_emit.py`` formats.
+Counterpart of ``svtyper_tpu.gt.engine.TpuEngine``. The host prepares
+each chunk's compact wire (native ``svt_fetch_chunk`` through
+``svtyper_tpu.evidence.extract``), one per device shard, ships each as
+ONE uint8 buffer and one host-to-device copy, and one device step per
+shard runs unwire → ``classify_compact`` → the GL stage, producing the
+packed ``[N,24]`` rows that ``cli/fast_emit.py`` formats. Where the JAX
+engine runs one ``shard_map`` program over rectangular blocks, each
+shard here has its own wire geometry and step; their rows are
+concatenated in shard order.
 
 Float dtype: float64 on the CPU (oracle parity, ``ops/gl.py``'s f64
 branch) and float32 on CUDA, where the GL stage is the hand-written
@@ -20,8 +23,7 @@ engine's, so the CLI and emitter need nothing from ``svtyper_tpu.gt``.
 from __future__ import annotations
 
 import time
-from contextlib import nullcontext
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +40,7 @@ from svtyper_tpu.models.bayes import GT_STRINGS, GenotypeResult
 from svtyper_tpu.stats.library import Sample
 from svtyper_tpu_torch.evidence.device import classify_compact
 from svtyper_tpu_torch.ops.gl import genotype_batch, log_choose_table
-from svtyper_tpu_torch.ops.gl_kernel import genotype_rows
+from svtyper_tpu_torch.ops import gl_kernel
 
 MAX_N_TABLE = 1 << 17  # log-choose table span; QR+QA beyond this clamps
 
@@ -165,7 +167,28 @@ def _resolve_device(device, dtype):
     return device, dtype
 
 
+def local_cuda_devices() -> List[torch.device]:
+    """Every CUDA device this process sees (``jax.local_devices()``'s
+    counterpart); raises when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False"
+        )
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 class TorchEngine:
+    """Chunked genotyping over one or more devices of one kind.
+
+    ``device`` names one device; ``devices`` lists several (a device may
+    repeat: ``[cpu] * 8`` or ``[cuda:0, cuda:0]`` run the sharded path
+    on one device). With neither, the engine drives every visible CUDA
+    device. Each chunk is split into contiguous shards of ``chunk_size
+    // n_dev`` variants, one per device, and the chunk size is rounded
+    up to a multiple of the device count; a one-device engine is the
+    same path with one shard, so the JAX engine's ``force_shard`` has
+    no counterpart here."""
+
     def __init__(
         self,
         samples: List[Sample],
@@ -176,10 +199,23 @@ class TorchEngine:
         max_ci_dist: float = 1e10,
         chunk_size: int = 1024,
         prep_workers: Optional[int] = None,
-        device="cuda",
+        device=None,
         dtype: Optional[torch.dtype] = None,
+        devices: Optional[list] = None,
     ) -> None:
-        self.device, self.dtype = _resolve_device(device, dtype)
+        if device is not None and devices is not None:
+            raise ValueError("pass device (one) or devices (a list), not both")
+        if devices is None:
+            devices = [device] if device is not None else local_cuda_devices()
+        resolved = [_resolve_device(d, dtype) for d in devices]
+        if not resolved:
+            raise ValueError("no devices")
+        if len({(d.type, dt) for d, dt in resolved}) != 1:
+            raise ValueError("devices must be of one kind: %s" % (devices,))
+        self.devices = [d for d, _ in resolved]
+        self.dtype = resolved[0][1]
+        self.n_dev = len(self.devices)
+        chunk_size = -(-chunk_size // self.n_dev) * self.n_dev
         self.samples = samples
         self.min_aligned = min_aligned
         self.split_weight = split_weight
@@ -187,28 +223,25 @@ class TorchEngine:
         self.max_reads = max_reads
         self.max_ci_dist = max_ci_dist
         self.chunk_size = chunk_size
-        self._cuda = self.device.type == "cuda"
-        # the log-choose table serves the float64 GL branch only; the
-        # float32 stage takes lc from lgamma
-        self._lcf = (
-            torch.as_tensor(
-                log_choose_table(MAX_N_TABLE, use_f64=True),
-                device=self.device,
-            )
-            if self.dtype == torch.float64
-            else None
-        )
-        self._dens_cache: Dict[int, torch.Tensor] = {}
+        self._cuda = self.devices[0].type == "cuda"
+        # per-device state: the f64 log-choose table (the float64 GL
+        # branch only; the float32 stage takes lc from lgamma) and each
+        # sample's insert densities, keyed by (sample, device)
+        self._lcf: Dict[torch.device, torch.Tensor] = {}
+        self._dens_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
         self._hw_reads = 0
         self._hw_pairs = 0
         self._sample_pool = None  # lazy; multi-sample prep fan-out
         # -w evidence export: when set, called as sink(sample_idx, ev)
         # once per (chunk, sample) from the prep thread(s); ev is the
-        # native chunk_evidence() tuple, or None when this chunk's prep
-        # used a non-native path (caller falls back to a re-fetch)
+        # native chunk_evidence() tuple (shards merged), or None when
+        # this chunk's prep used a non-native path (caller falls back to
+        # a re-fetch)
         self.evidence_sink = None
         self._prep_workers = prep_workers  # None = env/auto
-        # per-stage wall-time observability (SURVEY.md §5)
+        # per-stage wall-time observability (SURVEY.md §5); chunks
+        # counts engine chunks, not shards; gl_launches counts the CUDA
+        # GL kernel's launches (one per shard of every chunk on the card)
         self.stats = {
             "prep_s": 0.0,   # host: fetch + layout (prep thread)
             "send_s": 0.0,   # host→device copy + step launches
@@ -217,24 +250,29 @@ class TorchEngine:
             "pairs": 0,
             "chunks": 0,
             "variants": 0,
+            "gl_launches": 0,
         }
 
-    def _step(self, wire: torch.Tensor, geom, dens: torch.Tensor, n_var: int):
-        """The device step: unwire → classify_compact → GL → [n_var,24]."""
+    def _step(self, wire: torch.Tensor, geom, si: int, n_var: int):
+        """The device step on the wire's device: unwire →
+        classify_compact → GL → [n_var,24]."""
         cr16, cr8, cp16, cp32, cp8, v32, v8 = unwire(wire, geom)
         counts = classify_compact(
-            cr16, cr8, cp16, cp32, cp8, v32, v8, dens, n_var,
-            dtype=self.dtype,
+            cr16, cr8, cp16, cp32, cp8, v32, v8,
+            self._dens_for(si, wire.device), n_var, dtype=self.dtype,
         )
         is_dup = v8[_IB["is_dup"]]
         force_null = v8[_IB["force_null"]]
         if self.dtype == torch.float32:
-            return genotype_rows(
+            before = gl_kernel.LAUNCHES
+            rows = gl_kernel.genotype_rows(
                 counts, is_dup, force_null,
                 self.split_weight, self.disc_weight,
             )
+            self.stats["gl_launches"] += gl_kernel.LAUNCHES - before
+            return rows
         out = genotype_batch(
-            counts, is_dup, force_null, self._lcf,
+            counts, is_dup, force_null, self._lcf_for(wire.device),
             split_weight=self.split_weight, disc_weight=self.disc_weight,
         )
         ints = torch.stack([out[k].to(self.dtype) for k in INT_FIELDS], dim=1)
@@ -244,22 +282,31 @@ class TorchEngine:
         )
         return torch.cat([ints, flts], dim=1)
 
-    def _dens_for(self, sample_idx: int) -> torch.Tensor:
-        d = self._dens_cache.get(sample_idx)
+    def _lcf_for(self, dev: torch.device) -> torch.Tensor:
+        t = self._lcf.get(dev)
+        if t is None:
+            t = torch.as_tensor(
+                log_choose_table(MAX_N_TABLE, use_f64=True), device=dev
+            )
+            self._lcf[dev] = t
+        return t
+
+    def _dens_for(self, sample_idx: int, dev: torch.device) -> torch.Tensor:
+        d = self._dens_cache.get((sample_idx, dev))
         if d is None:
             d = dens_state(
-                self.samples[sample_idx].dens_matrix(), self.device, self.dtype
+                self.samples[sample_idx].dens_matrix(), dev, self.dtype
             )
-            self._dens_cache[sample_idx] = d
+            self._dens_cache[(sample_idx, dev)] = d
         return d
 
     def _prepare(self, bps: List[Optional[Breakpoint]]):
         """Host-only stage: fetch + layout for one chunk → per-sample
-        payloads. Runs on a single prep thread (the native chunk arena
-        is one-in-flight per BAM handle); the C++ decode inside releases
-        the GIL and fans out over its own threads. The numpy predicate
-        pass of the non-native path runs in ``_send`` instead, on the
-        main thread, overlapping the next chunk's native fetch."""
+        lists of per-shard payloads. Runs on a single prep thread; the
+        C++ decode inside releases the GIL and fans out over its own
+        threads. The numpy predicate pass of the non-native path runs in
+        ``_send`` instead, on the main thread, overlapping the next
+        chunk's native fetch."""
         t0 = time.time()
         n_real = len(bps)
         # constant chunk geometry: pad short chunks with absent variants
@@ -272,28 +319,57 @@ class TorchEngine:
         if len(self.samples) > 1:
             outs = list(
                 self._get_sample_pool().map(
-                    lambda t: self._prepare_sample(t[1], bps, t[0]),
+                    lambda t: self._prepare_sharded(t[1], bps, t[0]),
                     enumerate(self.samples),
                 )
             )
         else:
-            outs = [self._prepare_sample(self.samples[0], bps, 0)]
+            outs = [self._prepare_sharded(self.samples[0], bps, 0)]
         payloads = []
-        for entry, n_ev, n_pair, r_w, p_w in outs:
+        for shards, n_ev, n_pair, r_w, p_w in outs:
             self._hw_reads = max(self._hw_reads, r_w)
             self._hw_pairs = max(self._hw_pairs, p_w)
             self.stats["reads"] += n_ev
             self.stats["pairs"] += n_pair
-            payloads.append(entry)
+            payloads.append(shards)
         self.stats["prep_s"] += time.time() - t0
         self.stats["chunks"] += 1
         self.stats["variants"] += n_real
         return payloads
 
-    def _prepare_sample(self, sample: Sample, bps, si: int = 0):
-        """Stateless single-sample prep body → ``(payload_entry, n_ev,
-        n_pair, r_width, p_width)``; the caller owns high-water /stats
-        updates (keeps this safe to run concurrently per sample)."""
+    def _prepare_sharded(self, sample: Sample, bps, si: int = 0):
+        """One sample's chunk → ``(shard payloads, n_ev, n_pair,
+        r_width, p_width)``: ``n_dev`` contiguous shards of
+        ``chunk_size // n_dev`` variants, prepped serially (the native
+        arena allows one fetch in flight per BAM handle). Stateless, so
+        samples fan out over the prep pool; the caller owns high-water
+        and stats updates."""
+        n_shard = self.chunk_size // self.n_dev
+        parts = [
+            self._prepare_shard(sample, bps[d * n_shard: (d + 1) * n_shard])
+            for d in range(self.n_dev)
+        ]
+        if self.evidence_sink is not None:
+            evs = [p[5] for p in parts]
+            self.evidence_sink(
+                si,
+                None  # a non-native shard: the whole chunk re-fetches
+                if any(e is None for e in evs)
+                else tuple(np.concatenate(cols) for cols in zip(*evs)),
+            )
+        return (
+            [p[0] for p in parts],
+            sum(p[1] for p in parts),
+            sum(p[2] for p in parts),
+            max(p[3] for p in parts),
+            max(p[4] for p in parts),
+        )
+
+    def _prepare_shard(self, sample: Sample, bps):
+        """Fetch + layout of one shard → ``(payload_entry, n_ev, n_pair,
+        r_width, p_width, evidence)``; evidence is the arena's
+        ``chunk_evidence()`` when -w asked for it and the native path
+        ran, else None."""
         res = prepare_compact_chunk(
             sample,
             bps,
@@ -305,16 +381,16 @@ class TorchEngine:
         )
         if res is not None:
             compact, n_var, n_ev, n_pair = res
-            if self.evidence_sink is not None:
-                # pull the arena's kept-row records BEFORE the next
-                # fetch on this handle overwrites them
-                self.evidence_sink(si, sample.bam.chunk_evidence())
+            # pull the arena's kept-row records BEFORE the next fetch on
+            # this handle overwrites them
+            ev = (
+                sample.bam.chunk_evidence()
+                if self.evidence_sink is not None else None
+            )
             return (
                 (("compact", compact), n_var), n_ev, n_pair,
-                compact["cr_u16"].shape[1], compact["cp_u16"].shape[1],
+                compact["cr_u16"].shape[1], compact["cp_u16"].shape[1], ev,
             )
-        if self.evidence_sink is not None:
-            self.evidence_sink(si, None)  # non-native prep: re-fetch
         chunk = prepare_chunk(
             sample,
             bps,
@@ -328,7 +404,7 @@ class TorchEngine:
         n_pair = int(np.count_nonzero(chunk.pairs["var"] < chunk.n_var))
         return (
             (chunk, chunk.n_var), n_ev, n_pair,
-            len(chunk.reads["var"]), len(chunk.pairs["var"]),
+            len(chunk.reads["var"]), len(chunk.pairs["var"]), None,
         )
 
     def _get_sample_pool(self):
@@ -367,43 +443,50 @@ class TorchEngine:
             )
         return self._sample_pool
 
-    def _to_device(self, wire: np.ndarray) -> torch.Tensor:
-        """One host→device copy of the chunk's wire. On CUDA the wire is
+    def _to_device(self, wire: np.ndarray, dev: torch.device) -> torch.Tensor:
+        """One host→device copy of a shard's wire. On CUDA the wire is
         staged in a fresh pinned buffer and copied asynchronously; the
         caching host allocator keeps that buffer from reuse until the
         copy has completed, so chunks in flight never share one."""
         host = torch.from_numpy(wire)
         if not self._cuda:
             return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+        return host.pin_memory().to(dev, non_blocking=True)
 
     def _send(self, payloads):
-        """Device stage: host→device copy + step launches, no sync. Runs
-        on the main thread; the device runs chunk k while chunk k+1
-        preps and chunk k-1 collects. Each result is copied back into a
-        pinned buffer behind an event that ``_collect`` waits on."""
+        """Device stage: host→device copies + step launches, no sync.
+        Runs on the main thread; every shard of every sample is launched
+        before any is collected, so devices overlap, and the device runs
+        chunk k while chunk k+1 preps and chunk k-1 collects. Each
+        shard's rows are copied back into a pinned buffer behind an
+        event that ``_collect`` waits on."""
         t0 = time.time()
         arrs = []
-        with torch.cuda.device(self.device) if self._cuda else nullcontext():
-            for si, (payload, n_var) in enumerate(payloads):
-                if isinstance(payload, tuple) and payload[0] == "compact":
-                    packed = payload[1]
-                else:
-                    packed = compact_chunk(payload, self.min_aligned)
-                wire, geom = pack_wire(packed)
-                rows = self._step(
-                    self._to_device(wire), geom, self._dens_for(si), n_var
-                )
-                if not self._cuda:
-                    arrs.append((rows, None))
-                    continue
-                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-                host.copy_(rows, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                arrs.append((host, done))
+        for si, shards in enumerate(payloads):
+            arrs.append([
+                self._launch(si, dev, payload, n_var)
+                for dev, (payload, n_var) in zip(self.devices, shards)
+            ])
         self.stats["send_s"] += time.time() - t0
         return arrs
+
+    def _launch(self, si: int, dev: torch.device, payload, n_var: int):
+        """One shard's wire → its step on ``dev`` → ``(rows, event)``;
+        the event is None on the CPU, where the rows are ready."""
+        if isinstance(payload, tuple) and payload[0] == "compact":
+            packed = payload[1]
+        else:
+            packed = compact_chunk(payload, self.min_aligned)
+        wire, geom = pack_wire(packed)
+        if not self._cuda:
+            return self._step(self._to_device(wire, dev), geom, si, n_var), None
+        with torch.cuda.device(dev):
+            rows = self._step(self._to_device(wire, dev), geom, si, n_var)
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return host, done
 
     def _dispatch(self, bps: List[Optional[Breakpoint]]):
         """Prep + send for one chunk (the synchronous entry point)."""
@@ -414,10 +497,15 @@ class TorchEngine:
     ) -> List[List[GenotypeResult]]:
         t0 = time.time()
         per_sample = []
-        for rows, done in arrs:
-            if done is not None:
-                done.synchronize()  # sync point
-            per_sample.append(rows.numpy())
+        for shards in arrs:
+            for _rows, done in shards:
+                if done is not None:
+                    done.synchronize()  # sync point
+            # shards are contiguous variant slices: concatenating them
+            # in shard order restores the chunk's input order
+            per_sample.append(
+                np.concatenate([rows.numpy() for rows, _ in shards])
+            )
         self.stats["sync_s"] += time.time() - t0
         if raw:
             # vectorized-emission path (cli fast_emit): hand back the

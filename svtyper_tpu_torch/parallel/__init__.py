@@ -1,1 +1,2 @@
-"""Variant sharding (``multihost.shard_slices``)."""
+"""Scale-out: contiguous variant sharding and the multi-host gather
+(``multihost``), the multi-device dryrun (``dryrun``)."""

@@ -7,8 +7,9 @@
   SVT_PALLAS=interpret`` (the tests/test_pallas_engine.py setup);
 - the vectorized emitter copy against the original on 512 random rows,
   and fast vs object emission on a two-sample run with a BND;
-- checkpoint/resume, ``--num_shards``, the refusals of what is not
-  ported, and the package importing with jax refused.
+- checkpoint/resume, ``--num_shards``, ``--profile``, ``-w`` on a
+  sharded run, the CUDA refusal, and the package importing with jax
+  refused.
 """
 
 import os
@@ -215,20 +216,49 @@ def test_fast_emit_copy_matches_original():
         ]
 
 
-def test_unported_modes_raise(monkeypatch, tmp_path):
+def test_unported_modes_raise(monkeypatch, pe_fixture, tmp_path, capsys):
+    """The modes the port once refused now run: ``--profile`` writes a Chrome
+    trace, and ``-w`` on a sharded run (4 CPU shards, the engine-export
+    path with per-shard evidence merged) writes the same BAM records as
+    one device. Without CUDA the CLI's default device still refuses."""
+    import json
+
+    from svtyper_tpu.bamio.bam import BamFile
+    from svtyper_tpu.bamio.native import get_lib
+
     out = str(tmp_path / "o.vcf")
-    with pytest.raises(NotImplementedError):
-        tclassic.main(EXAMPLE + ["-o", out, "--profile", str(tmp_path)],
-                      device="cpu")
-    monkeypatch.setenv("SVT_DIST_COORD", "localhost:1234")
-    monkeypatch.setenv("SVT_DIST_NPROCS", "2")
-    with pytest.raises(RuntimeError, match="SVT_DIST"):
-        tclassic.main(EXAMPLE + ["-o", out], device="cpu")
-    monkeypatch.delenv("SVT_DIST_COORD")
-    monkeypatch.delenv("SVT_DIST_NPROCS")
+    prof = tmp_path / "prof"
+    _run(EXAMPLE + ["-o", out, "--profile", str(prof)])
+    assert _read(out) == _read(os.path.join(DATA, "example.expected.vcf"))
+    (trace,) = list(prof.iterdir())
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("name") == "aten::segment_reduce" for e in events)
+
+    bam, vcf, _d = pe_fixture
+    argv = ["-i", vcf, "-B", bam, "-n", "20000", "--batch_size", "5"]
+    ev = {}
+    for key, kw in (("one", {"device": "cpu"}),
+                    ("sharded", {"devices": ["cpu"] * 4})):
+        capsys.readouterr()
+        path = str(tmp_path / ("ev_%s.bam" % key))
+        assert tclassic.main(
+            argv + ["-o", str(tmp_path / (key + ".vcf")), "-w", path], **kw
+        ) == 0
+        err = capsys.readouterr().err
+        assert ("re-fetch" in err) == (get_lib() is None), err
+        ev[key] = BamFile(path).fetch("chr1", 0, REFS[0][1])
+    assert "rounded to 8" in err
+    assert _read(str(tmp_path / "sharded.vcf")) == _read(
+        str(tmp_path / "one.vcf"))
+    a, b = ev["one"], ev["sharded"]
+    assert a.n == b.n > 0
+    for col in ("qname_hash", "pos", "flag"):
+        np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tclassic.main(EXAMPLE + ["-o", out])  # device None → "cuda"
+        tclassic.main(EXAMPLE + ["-o", out])  # default: the CUDA devices
 
 
 _JAX_FREE = r"""
@@ -245,6 +275,8 @@ import svtyper_tpu_torch.cli.classic
 import svtyper_tpu_torch.cli.sso
 import svtyper_tpu_torch.gt.engine
 import svtyper_tpu_torch.ops.gl_kernel
+import svtyper_tpu_torch.parallel.dryrun
+import svtyper_tpu_torch.parallel.multihost
 import svtyper_tpu_torch.utils.fixture
 import svtyper_tpu_torch.utils.parity
 import chip_smoke
