@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
 """Smoke test of svtyper_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py                # one card: phases 1-8
-    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7
+    python3 chip_smoke.py                # one card: phases 1-12
+    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10
 
 Drives the port's shipped command (``svtyper_tpu_torch.cli.classic``)
-on the card and checks it end to end, in eight phases; any failure exits
-non-zero:
+and its tools (``svtyper_tpu_torch.tools``) on the card and checks them
+end to end, in twelve phases; any failure exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, which BAM decoder loaded;
 2. build: compiles ``csrc/gl_kernel.cu`` with nvcc and loads it;
 3. kernel against its plain twin, on the card, on the random and
    adversarial GL grids at N = 1, 1000, 1024, 65536: the 14 integer
-   fields bit-identical, GL/SQ/AB equal at output-format precision; the
-   kernel's and the twin's times at N = 1024 and 65536;
+   fields bit-identical, GL/SQ/AB equal at output-format precision;
+   then ``tools.gl_bench`` at N = 1024 and 65536: kernel, twin and the
+   torch ``genotype_batch`` against each other and their times;
 4. golden file: the CLI on ``data/example.vcf`` against
    ``data/example.expected.vcf`` (the float64 oracle): GT and every
    integer FORMAT field identical, GL/SQ/AB/QUAL within one unit of the
@@ -37,17 +38,28 @@ non-zero:
    the card(s): rank 0's VCF byte-identical to phase 5's, rank 1's
    empty;
 8. profile: the CLI with ``--profile`` on the golden example writes a
-   Chrome trace that names the GL kernel.
+   Chrome trace that names the GL kernel;
+9. ``tools.profile_chunks`` on phase 5's 20,500 records at chunk sizes
+   512, 1024, 2048 and 4096: integer fields identical across sizes;
+10. ``tools.scaling_curve`` on the same records: 1 and 2 shards on one
+    card (1, 2 and 4 cards under ``--multi-card``), each output
+    identical to one device's;
+11. ``tools.soak``: the library stream and the CLI, each over 200,000
+    variants of phase 5's loci, host RSS and reserved device memory
+    flat within 10%;
+12. ``tools.dump_chunk_args`` writes the first chunk's native fetch
+    arguments.
 
-Each phase that drives the CLI zeroes ``gl_kernel.LAUNCHES`` just before
-and reads it just after (phase 7 reads each process's count from the
-engine's ``gl_launches`` in its ``SVT_CLI_STATS``); the kernel line
-reports their sum.
+Each phase that drives the CLI or a tool zeroes ``gl_kernel.LAUNCHES``
+just before and reads it just after (phases 7 and 11 read a child
+process's count from the engine's ``gl_launches`` in its
+``SVT_CLI_STATS``), and fails if the kernel did not run as often as the
+phase's chunks ask; the kernel line reports their sum.
 
 ``--multi-card`` is the check for a host with several cards: it runs
-only the phases that span cards (6 and 7) and the single-card phase 5
-they are compared with, and prints no kernel line (phase 3 measures the
-kernel).
+only the phases that span cards (6, 7 and 10) and the single-card phase
+5 they are compared with, and prints no kernel line (phase 3 measures
+the kernel).
 
 Prints diagnostics, then the card's name and power limit, one JSON line
 describing each kernel, and last the result line
@@ -69,6 +81,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+WGS_VCF = os.path.join(WORK, "wgs", "wgs.vcf")  # phase 5's 1,000 records
 N_EVENTS = 1000
 N_RECORDS = 20_500
 CHUNK = 1024
@@ -78,6 +91,10 @@ GRID_SIZES = (1, 1000, 1024, 65536)
 TIMED_SIZES = (1024, 65536)
 GL_SYMBOL = "gl_rows_kernel"  # the __global__ in csrc/gl_kernel.cu
 RANK_TIMEOUT_S = 600
+SWEEP_SIZES = (512, 1024, 2048, 4096)
+SOAK_N = 200_000
+SOAK_EVERY = 5  # library soak: chunks between memory samples
+SOAK_INTERVAL = 0.5  # CLI soak: seconds between memory samples
 
 
 class _RefuseJax:
@@ -98,33 +115,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int, warmup: int = 10) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def phase_kernel(torch, gl_kernel, parity):
+def phase_kernel(torch, gl_kernel, parity, gl_bench):
     """Phase 3 → (max abs error, {N: (kernel ms, twin ms)})."""
     max_err = 0.0
     for n in GRID_SIZES:
@@ -155,17 +146,9 @@ def phase_kernel(torch, gl_kernel, parity):
                 % (n, grid.__name__, err))
     times = {}
     for n in TIMED_SIZES:
-        counts, is_dup, force_null = parity.random_counts(n)
-        args = (
-            torch.tensor(counts, dtype=torch.float32, device="cuda"),
-            torch.tensor(is_dup, dtype=torch.uint8, device="cuda"),
-            torch.tensor(force_null, dtype=torch.uint8, device="cuda"),
-        )
-        k_ms = time_ms(lambda: gl_kernel.genotype_rows_cuda(*args), 500)
-        p_ms = time_ms(lambda: gl_kernel.genotype_rows_plain(*args), 100)
-        times[n] = (k_ms, p_ms)
-        log("phase 3: N=%d kernel %.6f ms, plain twin %.6f ms per call"
-            % (n, k_ms, p_ms))
+        res = gl_bench.bench(n, "cuda")
+        times[n] = (res["kernel_ms"], res["twin_ms"])
+        log("phase 3: gl_bench %s" % json.dumps(res))
     return max_err, times
 
 
@@ -221,7 +204,7 @@ def concordance(path, truth):
 def phase_slice(torch, classic, gl_kernel, fixture):
     t0 = time.time()
     bam, vcf, truth = fixture.simulate_wgs(
-        os.path.join(WORK, "wgs"), N_EVENTS, depth=30.0
+        os.path.dirname(WGS_VCF), N_EVENTS, depth=30.0
     )
     tiled = os.path.join(WORK, "wgs_tiled.vcf")
     fixture.tile_vcf(vcf, tiled, N_RECORDS)
@@ -429,11 +412,97 @@ def phase_profile(classic, gl_kernel, golden_out):
     return launches
 
 
+def phase_logger(phase: int):
+    return lambda obj: log("phase %d: %s" % (phase, json.dumps(obj)))
+
+
+def launched(gl_kernel, phase: int, want: int) -> int:
+    """The GL launches since the phase zeroed the count; fails unless
+    they are the ``want`` its chunks ask for."""
+    got = gl_kernel.LAUNCHES
+    check(got == want > 0, "phase %d: %d GL kernel launches, expected %d"
+          % (phase, got, want))
+    return got
+
+
+def phase_chunk_sweep(gl_kernel, profile_chunks, wgs):
+    """Phase 9 → its GL launches: one for the first call of each chunk
+    size, then one per chunk of every rep."""
+    bam, tiled = wgs[:2]
+    gl_kernel.LAUNCHES = 0
+    results, _ = profile_chunks.run(bam, tiled, sizes=SWEEP_SIZES,
+                                    device="cuda", emit=phase_logger(9))
+    want = sum(1 + sum(rep["chunks"] for rep in r["reps"]) for r in results)
+    launches = launched(gl_kernel, 9, want)
+    best = max(results, key=lambda r: r["median_variants_per_s"])
+    base = next(r for r in results if r["chunk_size"] == CHUNK)
+    log("phase 9: int fields identical across chunk sizes %s; fastest "
+        "chunk %d at %.1f variants/s (median of %d), %.3fx chunk %d's; %d "
+        "GL launches" % (
+            list(SWEEP_SIZES), best["chunk_size"],
+            best["median_variants_per_s"], len(best["reps"]),
+            best["median_variants_per_s"] / base["median_variants_per_s"],
+            CHUNK, launches))
+    return launches
+
+
+def phase_scaling(torch, gl_kernel, scaling_curve, wgs):
+    """Phase 10 → its GL launches: a warm-up and a timed run per device
+    count, one launch per shard of every chunk."""
+    bam, tiled = wgs[:2]
+    counts = (1, 2) if torch.cuda.device_count() == 1 else (1, 2, 4)
+    gl_kernel.LAUNCHES = 0
+    rows = scaling_curve.run(bam, tiled, device="cuda", counts=counts,
+                             emit=phase_logger(10))
+    want = sum(2 * r["chunks"] * r["devices"] for r in rows)
+    launches = launched(gl_kernel, 10, want)
+    log("phase 10: %s devices on %s card(s): every output identical to one "
+        "device's; %d GL launches"
+        % ([r["devices"] for r in rows], [r["cards"] for r in rows],
+           launches))
+    return launches
+
+
+def phase_soak(gl_kernel, soak, wgs_vcf, bam):
+    """Phase 11 → the GL launches of the library and the CLI soak."""
+    gl_kernel.LAUNCHES = 0
+    lib = soak.soak_library(bam, wgs_vcf, n=SOAK_N, device="cuda",
+                            every=SOAK_EVERY, emit=phase_logger(11))
+    launches = launched(gl_kernel, 11, 1 + lib["chunks"])
+    cli = soak.soak_cli(bam, wgs_vcf, n=SOAK_N, interval=SOAK_INTERVAL,
+                        emit=phase_logger(11))
+    check(cli["gl_launches"] == cli["chunks"] > 0,
+          "phase 11: the CLI soak launched %d GL kernels for %d chunks"
+          % (cli["gl_launches"], cli["chunks"]))
+    log("phase 11: library soak %d variants, RSS drift %.4f, CUDA reserved "
+        "drift %.4f; CLI soak %d records, RSS drift %.4f, CUDA reserved "
+        "drift %.4f (limit 0.10 each); %d + %d GL launches"
+        % (lib["soak_variants"], lib["rss_drift"], lib["cuda_drift"],
+           cli["cli_soak_variants"], cli["rss_drift"], cli["cuda_drift"],
+           launches, cli["gl_launches"]))
+    return launches + cli["gl_launches"]
+
+
+def phase_dump(gl_kernel, dump_chunk_args, wgs):
+    """Phase 12 → its GL launch (one chunk)."""
+    bam, tiled = wgs[:2]
+    out = os.path.join(WORK, "chunkbin")
+    gl_kernel.LAUNCHES = 0
+    written = dump_chunk_args.dump(bam, tiled, out, device="cuda",
+                                   emit=phase_logger(12))
+    launches = launched(gl_kernel, 12, 1)
+    check(all(os.path.getsize(p) > 0 for p in written),
+          "phase 12: an empty dump file")
+    log("phase 12: %d files in %s; %d GL launch"
+        % (len(written), out, launches))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="phases 1, 2 and 5-7 on a host with two or more "
-                         "cards")
+                    help="phases 1, 2, 5-7 and 10 on a host with two or "
+                         "more cards")
     multi_card = ap.parse_args(argv).multi_card
     sys.meta_path.insert(0, _RefuseJax())
     import torch
@@ -448,12 +517,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from svtyper_tpu_torch.cli import classic
     from svtyper_tpu_torch.ops import _build, gl_kernel
+    from svtyper_tpu_torch.tools import (
+        common, dump_chunk_args, gl_bench, profile_chunks, scaling_curve,
+        soak,
+    )
     from svtyper_tpu_torch.utils import fixture, parity
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
-    smi = nvidia_smi_line()
+    smi = common.nvidia_smi_line()
     log("phase 1: %s | torch %s, CUDA %s, %d device(s) | decoder: %s"
         % (smi, torch.__version__, torch.version.cuda,
            torch.cuda.device_count(), fixture.decoder_name()))
@@ -465,16 +538,21 @@ def main(argv=None) -> int:
            " ".join(_build.NVCC_FLAGS)))
 
     if not multi_card:
-        max_err, times = phase_kernel(torch, gl_kernel, parity)
+        max_err, times = phase_kernel(torch, gl_kernel, parity, gl_bench)
         golden_out = phase_golden(classic, parity)
     wgs, launches = phase_slice(torch, classic, gl_kernel, fixture)
     launches += phase_multidevice(torch, classic, gl_kernel, wgs)
     launches += phase_multihost(torch, wgs)
     if not multi_card:
         launches += phase_profile(classic, gl_kernel, golden_out)
+        launches += phase_chunk_sweep(gl_kernel, profile_chunks, wgs)
+    launches += phase_scaling(torch, gl_kernel, scaling_curve, wgs)
+    if not multi_card:
+        launches += phase_soak(gl_kernel, soak, WGS_VCF, wgs[0])
+        launches += phase_dump(gl_kernel, dump_chunk_args, wgs)
     check("jax" not in sys.modules, "jax was imported")
     if multi_card:
-        log("multi-card: phases 5-7 ok on %d cards, %d GL launches"
+        log("multi-card: phases 5-7 and 10 ok on %d cards, %d GL launches"
             % (torch.cuda.device_count(), launches))
         log(smi)
         log(json.dumps(result_line(torch)))

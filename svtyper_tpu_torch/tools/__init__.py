@@ -1,0 +1,32 @@
+"""Operational entry points that drive ``TorchEngine`` and the GL kernel.
+
+Each module runs as ``python -m svtyper_tpu_torch.tools.<name>`` and has
+a plain function that tests and ``chip_smoke.py`` call:
+
+- ``gl_bench``         the CUDA GL kernel against its plain twin and the
+                       torch ``genotype_batch`` (``scripts/pallas_vs_jnp.py``);
+- ``profile_chunks``   chunk-size sweep with the prep/send/sync split
+                       (``scripts/profile_tpu.py``);
+- ``scaling_curve``    variants/s over 1, 2, 4, 8 devices, output held
+                       against one device (``scripts/scaling_curve.py``);
+- ``soak``             a long streaming run, library or CLI, with the
+                       flat-memory check (``scripts/soak_1m.py``);
+- ``dump_chunk_args``  one chunk's ``svt_fetch_chunk`` arguments for the
+                       native replay harness
+                       (``scripts/native_profile/dump_chunk_args.py``).
+
+With no ``device`` a tool runs on CUDA and exits non-zero where there is
+none; the CPU runs only when a caller passes ``device="cpu"``.
+
+``RefuseJax`` lives here, free of imports, so that a child process can
+install it before it imports anything of the port.
+"""
+
+
+class RefuseJax:
+    """Meta-path hook: the port runs without jax."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax."):
+            raise ImportError("jax import refused (%s)" % name)
+        return None

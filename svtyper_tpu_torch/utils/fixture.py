@@ -10,7 +10,7 @@ defaults: 150 bp paired-end reads, insert 350±40, mapq mix
 from __future__ import annotations
 
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -80,9 +80,12 @@ def decoder_name() -> str:
     return "native libsvtbam.so" if get_lib() is not None else "pure-Python"
 
 
-def load_sample_and_breakpoints(bam: str, vcf: str, n: int, num_samp: int):
-    """→ (Sample, the first ``n`` records' breakpoints) for driving
-    ``TorchEngine`` directly."""
+def load_sample_and_breakpoints(
+    bam: str, vcf: str, n: Optional[int] = None, num_samp: int = 200_000
+):
+    """→ (Sample, the first ``n`` records' breakpoints, every record's
+    when ``n`` is None) for driving ``TorchEngine`` directly. The default
+    ``num_samp`` is the JAX scripts' library sample."""
     from svtyper_tpu.bamio.bam import open_bam
     from svtyper_tpu.breakpoints import resolve_breakpoint
     from svtyper_tpu.stats import Sample
@@ -96,7 +99,7 @@ def load_sample_and_breakpoints(bam: str, vcf: str, n: int, num_samp: int):
         v.add_header(header)
         bps = []
         for line in body:
-            if len(bps) == n:
+            if n is not None and len(bps) == n:
                 break
             bps.append(resolve_breakpoint(Variant(line, v)))
     return sample, bps
