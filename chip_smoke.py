@@ -9,13 +9,19 @@ and its tools (``svtyper_tpu_torch.tools``) on the card and checks them
 end to end, in twelve phases; any failure exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
-   CUDA versions, which BAM decoder loaded;
-2. build: compiles ``csrc/gl_kernel.cu`` with nvcc and loads it;
+   CUDA versions;
+2. build, both at once: ``csrc/gl_kernel.cu`` with nvcc and the port's
+   own native BAM decoder (``bamio/_native/bamcore.cpp``, make and g++),
+   each into ``build/svtyper_tpu_torch/``, then loads both (no
+   pure-Python fallback);
 3. kernel against its plain twin, on the card, on the random and
-   adversarial GL grids at N = 1, 1000, 1024, 65536: the 14 integer
-   fields bit-identical, GL/SQ/AB equal at output-format precision;
-   then ``tools.gl_bench`` at N = 1024 and 65536: kernel, twin and the
-   torch ``genotype_batch`` against each other and their times;
+   adversarial GL grids at every ``GRID_SIZES`` N (some below, some not
+   a multiple of, the kernel's 32-variant tile): the 14 integer fields
+   bit-identical, GL/SQ/AB equal at output-format precision; then
+   ``tools.gl_bench`` at N = 1024, 4096 and 65536: kernel, twin and the
+   torch ``genotype_batch`` against each other, their times (the
+   kernel's as ``kernel_call_ms``, the wrapper's call included, and
+   ``kernel_device_ms``, replayed from a CUDA graph) and the bound;
 4. golden file: the CLI on ``data/example.vcf`` against
    ``data/example.expected.vcf`` (the float64 oracle): GT and every
    integer FORMAT field identical, GL/SQ/AB/QUAL within one unit of the
@@ -49,6 +55,9 @@ end to end, in twelve phases; any failure exits non-zero:
     flat within 10%;
 12. ``tools.dump_chunk_args`` writes the first chunk's native fetch
     arguments.
+
+The port runs with jax and the JAX package (``svtyper_tpu``) refused,
+and neither may be loaded at the end.
 
 Each phase that drives the CLI or a tool zeroes ``gl_kernel.LAUNCHES``
 just before and reads it just after (phases 7 and 11 read a child
@@ -87,8 +96,7 @@ N_RECORDS = 20_500
 CHUNK = 1024
 CONC_FLOOR = 0.97
 N_ENGINE_CMP = 2048
-GRID_SIZES = (1, 1000, 1024, 65536)
-TIMED_SIZES = (1024, 65536)
+GRID_SIZES = (1, 17, 1000, 1024, 1043, 4096, 65536)
 GL_SYMBOL = "gl_rows_kernel"  # the __global__ in csrc/gl_kernel.cu
 RANK_TIMEOUT_S = 600
 SWEEP_SIZES = (512, 1024, 2048, 4096)
@@ -98,11 +106,12 @@ SOAK_INTERVAL = 0.5  # CLI soak: seconds between memory samples
 
 
 class _RefuseJax:
-    """Meta-path hook: the port must run without jax."""
+    """Meta-path hook: the port must run without jax and without the
+    JAX package (``svtyper_tpu``; ``svtyper_tpu_torch`` is the port)."""
 
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax."):
-            raise ImportError("chip_smoke: jax import refused (%s)" % name)
+        if name.split(".")[0] in ("jax", "jaxlib", "svtyper_tpu"):
+            raise ImportError("chip_smoke: import refused (%s)" % name)
         return None
 
 
@@ -115,8 +124,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def phase_build(_build, native):
+    """Phase 2: the CUDA kernel and the native decoder, built side by
+    side from the checkout's sources and loaded."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t0 = time.time()
+        fn()
+        return time.time() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        kernel = pool.submit(timed, lambda: _build.load("gl_kernel"))
+        decoder = pool.submit(timed, native.require_lib)
+        k_s, d_s = kernel.result(), decoder.result()
+    log("phase 2: built and loaded %s in %.2f s (nvcc %s) and %s in %.2f s "
+        "(make), side by side"
+        % (_build.build("gl_kernel"), k_s, " ".join(_build.NVCC_FLAGS),
+           native._SO, d_s))
+
+
 def phase_kernel(torch, gl_kernel, parity, gl_bench):
-    """Phase 3 → (max abs error, {N: (kernel ms, twin ms)})."""
+    """Phase 3 → (max abs error, {N: gl_bench's result})."""
     max_err = 0.0
     for n in GRID_SIZES:
         for grid in (parity.random_counts, parity.adversarial_counts):
@@ -145,10 +174,13 @@ def phase_kernel(torch, gl_kernel, parity, gl_bench):
                 "format precision (max abs err %.3g)"
                 % (n, grid.__name__, err))
     times = {}
-    for n in TIMED_SIZES:
-        res = gl_bench.bench(n, "cuda")
-        times[n] = (res["kernel_ms"], res["twin_ms"])
+    for n in gl_bench.SIZES:
+        res = times[n] = gl_bench.bench(n, "cuda")
         log("phase 3: gl_bench %s" % json.dumps(res))
+        log("phase 3: N=%d: kernel_device_ms %.6f, kernel_call_ms %.6f, "
+            "bound %.6f ms (%s), %.4f of it"
+            % (n, res["kernel_device_ms"], res["kernel_call_ms"],
+               res["bound_ms"], res["bound_by"], res["bound_share"]))
     return max_err, times
 
 
@@ -515,6 +547,7 @@ def main(argv=None) -> int:
               % torch.cuda.device_count(), file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from svtyper_tpu_torch.bamio import native
     from svtyper_tpu_torch.cli import classic
     from svtyper_tpu_torch.ops import _build, gl_kernel
     from svtyper_tpu_torch.tools import (
@@ -527,15 +560,10 @@ def main(argv=None) -> int:
     os.makedirs(WORK)
 
     smi = common.nvidia_smi_line()
-    log("phase 1: %s | torch %s, CUDA %s, %d device(s) | decoder: %s"
+    log("phase 1: %s | torch %s, CUDA %s, %d device(s)"
         % (smi, torch.__version__, torch.version.cuda,
-           torch.cuda.device_count(), fixture.decoder_name()))
-
-    t0 = time.time()
-    _build.load("gl_kernel")
-    log("phase 2: built and loaded %s in %.2f s (nvcc %s)"
-        % (_build.build("gl_kernel"), time.time() - t0,
-           " ".join(_build.NVCC_FLAGS)))
+           torch.cuda.device_count()))
+    phase_build(_build, native)
 
     if not multi_card:
         max_err, times = phase_kernel(torch, gl_kernel, parity, gl_bench)
@@ -551,6 +579,7 @@ def main(argv=None) -> int:
         launches += phase_soak(gl_kernel, soak, WGS_VCF, wgs[0])
         launches += phase_dump(gl_kernel, dump_chunk_args, wgs)
     check("jax" not in sys.modules, "jax was imported")
+    check("svtyper_tpu" not in sys.modules, "svtyper_tpu was imported")
     if multi_card:
         log("multi-card: phases 5-7 and 10 ok on %d cards, %d GL launches"
             % (torch.cuda.device_count(), launches))
@@ -558,7 +587,7 @@ def main(argv=None) -> int:
         log(json.dumps(result_line(torch)))
         return 0
 
-    k_ms, p_ms = times[CHUNK]
+    t = times[CHUNK]
     kernels = [{
         "name": "gl_rows",
         "route": "cuda",
@@ -566,11 +595,18 @@ def main(argv=None) -> int:
         "replaces": "svtyper_tpu/ops/pallas_gl.py:164",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "ms": t["kernel_call_ms"],
+        "device_ms": t["kernel_device_ms"],
+        "plain_ms": t["twin_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "bound_share": t["bound_share"],
+        # no single PyTorch call computes the GL stage
+        "library_ms": None,
     }]
-    check(all(math.isfinite(v) for v in (max_err, k_ms, p_ms)),
-          "non-finite kernel numbers")
+    check(all(math.isfinite(v) for v in (
+        max_err, t["kernel_call_ms"], t["kernel_device_ms"], t["twin_ms"],
+        t["bound_share"])), "non-finite kernel numbers")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps(result_line(torch)))

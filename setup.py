@@ -29,6 +29,7 @@ setup(
     package_data={
         "svtyper_tpu.bamio": ["_native/*.cpp", "_native/Makefile"],
         "svtyper_tpu_torch": ["csrc/*.cu"],
+        "svtyper_tpu_torch.bamio": ["_native/*.cpp", "_native/Makefile"],
     },
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],

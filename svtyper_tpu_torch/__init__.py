@@ -1,11 +1,14 @@
 """svtyper_tpu_torch — the svtyper-tpu genotyper on PyTorch and CUDA.
 
-A port of ``svtyper_tpu``'s device half to PyTorch, beside the JAX
-package, which stays the reference. It imports ``torch`` and never
-``jax``; the host half (BAM/CRAM decoding, VCF I/O, library statistics,
-the compact-wire builder, the oracle) is imported from ``svtyper_tpu``
-modules that are themselves free of jax. Module names follow the JAX
-package's:
+A port of ``svtyper_tpu`` to PyTorch, beside the JAX package, which
+stays the reference. It imports ``torch``, never ``jax``, and nothing of
+``svtyper_tpu``: the host half (BAM/CRAM decoding in ``bamio``, VCF I/O
+in ``vcfio``, ``stats``, ``breakpoints``, the compact-wire builder in
+``evidence/extract.py``, the float64 ``oracle``, ``output``, the
+checkpoints, ``simulate``) is the port's own copy of the JAX package's
+jax-free modules, at the same paths, with only their imports changed
+(``scripts/copy_host_half.py``). Module names follow the JAX package's;
+the device half is:
 
 - ``ops``       the GL stage: ``gl`` (torch, both float branches) and
                 ``gl_kernel`` (the hand-written CUDA kernel for Hopper
@@ -20,4 +23,4 @@ package's:
                 ``chip_smoke.py``.
 """
 
-from svtyper_tpu.version import __version__  # noqa: F401
+from svtyper_tpu_torch.version import __version__  # noqa: F401

@@ -20,14 +20,25 @@ import sys
 import time
 from typing import IO, List, Optional
 
-from svtyper_tpu.bamio.bam import open_bam
-from svtyper_tpu.breakpoints import BndRegistry
-from svtyper_tpu.cli.classic import open_vcf_input
-from svtyper_tpu.output import add_format_headers, apply_variant
-from svtyper_tpu.stats import Sample
-from svtyper_tpu.vcfio.model import Variant, Vcf
-from svtyper_tpu.vcfio.reader import read_vcf_lines
-from svtyper_tpu.version import __version__
+from svtyper_tpu_torch.bamio.bam import open_bam
+from svtyper_tpu_torch.breakpoints import BndRegistry
+from svtyper_tpu_torch.output import add_format_headers, apply_variant
+from svtyper_tpu_torch.stats import Sample
+from svtyper_tpu_torch.vcfio.model import Variant, Vcf
+from svtyper_tpu_torch.vcfio.reader import read_vcf_lines
+from svtyper_tpu_torch.version import __version__
+
+
+def open_vcf_input(path):
+    """-i input opener shared by both CLIs: .vcf.gz inputs (LUMPY
+    outputs are often bgzip-compressed in pipelines) go through
+    gzip.open, which handles plain gzip AND bgzip members; the
+    streaming re-read path rewinds either like any seekable file."""
+    if path.endswith(".gz"):
+        import gzip
+
+        return gzip.open(path, "rt")
+    return open(path)
 
 
 def get_args(argv=None):
@@ -176,7 +187,7 @@ def sv_genotype(
         )
 
     if engine_kind == "oracle":
-        from svtyper_tpu.oracle import OracleEngine
+        from svtyper_tpu_torch.oracle import OracleEngine
 
         engine = OracleEngine(
             samples, min_aligned=min_aligned, split_weight=split_weight,
@@ -286,13 +297,13 @@ def sv_genotype(
     # directory must be bound to THIS input + flag tuple — a mismatch
     # (different VCF/BAM/flags) refuses instead of silently emitting
     # stale genotypes (cli/checkpoint.py)
-    from svtyper_tpu.cli.checkpoint import CrashInjector
+    from svtyper_tpu_torch.cli.checkpoint import CrashInjector
 
     crash = CrashInjector()
     if checkpoint_dir:
         import json
 
-        from svtyper_tpu.cli.checkpoint import (
+        from svtyper_tpu_torch.cli.checkpoint import (
             build_manifest_hashed,
             ensure_manifest,
         )
@@ -333,7 +344,7 @@ def sv_genotype(
         # variant slice; ship fixed-width rows through the collective
         import numpy as np
 
-        from svtyper_tpu.cli.checkpoint import (
+        from svtyper_tpu_torch.cli.checkpoint import (
             load_rows,
             rows_part_path,
             save_rows,
@@ -531,7 +542,7 @@ def sv_genotype(
     writer_bams = None
     evidence_streamed = False
     if alignment_outpath:
-        from svtyper_tpu.cli.write_alignment import EvidenceWriter
+        from svtyper_tpu_torch.cli.write_alignment import EvidenceWriter
 
         writer_bams = EvidenceWriter(alignment_outpath, samples)
         # engine-export fast path: the native chunk fetch records every
@@ -862,7 +873,7 @@ def _write_stats(engine, n_done, t_gt, t0, t_first, gather_s) -> None:
         return
     import json
 
-    from svtyper_tpu.bamio.native import perf_counters
+    from svtyper_tpu_torch.bamio.native import perf_counters
 
     now = time.time()
     payload = {

@@ -16,9 +16,11 @@ columns, ``--debug``).
 Parity is enforced by ``tests/test_fast_emit.py``: the fast path must
 produce byte-identical output to the object path on every fixture.
 
-This is a copy of ``svtyper_tpu/cli/fast_emit.py`` whose only change is
-the import of the row layout, which comes from the port's jax-free
-``gt/engine.py`` (``tests/test_torch_cli.py`` holds the two together).
+This is a copy of ``svtyper_tpu/cli/fast_emit.py`` whose only changes
+are its imports: the row layout comes from the port's jax-free
+``gt/engine.py``, ``GT_STRINGS`` and ``FORMAT_DEFS`` from the port's
+``models/bayes.py`` and ``output.py`` (``tests/test_torch_cli.py`` holds
+the two together).
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 
 from svtyper_tpu_torch.gt.engine import INT_FIELDS, _I, _to_result
-from svtyper_tpu.models.bayes import GT_STRINGS
-from svtyper_tpu.output import FORMAT_DEFS, apply_variant
+from svtyper_tpu_torch.models.bayes import GT_STRINGS
+from svtyper_tpu_torch.output import FORMAT_DEFS, apply_variant
 
 _NI = len(INT_FIELDS)
 FIELD_ORDER = tuple(f[0] for f in FORMAT_DEFS)

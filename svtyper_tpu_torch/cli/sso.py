@@ -16,9 +16,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from svtyper_tpu.cli.classic import open_vcf_input
-from svtyper_tpu.version import __version__
-from svtyper_tpu_torch.cli.classic import sv_genotype
+from svtyper_tpu_torch.cli.classic import open_vcf_input, sv_genotype
+from svtyper_tpu_torch.version import __version__
 
 
 def get_args(argv=None):

@@ -1,5 +1,6 @@
-// Fused genotype-likelihood stage for Hopper (sm_90a), one thread per
-// variant.
+// Fused genotype-likelihood stage for Hopper (sm_90a): one 32-variant
+// tile per block, one variant per thread, inputs and outputs staged
+// through shared memory so that every global access is coalesced.
 //
 // Replaces svtyper_tpu/ops/pallas_gl.py::genotype_batch_pallas, the
 // Pallas TPU kernel of the float32 device step. From the [N,5] evidence
@@ -11,10 +12,36 @@
 // gl0-2, sq, ab, c0-4. That drops the pad-to-512, transpose and concat
 // that the TPU engine wraps around the Pallas call.
 //
-// What bounds it: at the engine's N=1024 it is one tiny launch, so
-// launch latency and the 96-byte row store per variant dominate; the
-// arithmetic (three lgammaf, three expf, one log10f) is negligible.
-// A later step fuses it with classify_compact into one launch.
+// What bounds it. It moves 118 bytes per variant (20 in, two flag
+// bytes, 96 out), so at 3.35 TB/s its bound is 0.036 us at the engine's
+// N = 1024 and 2.3 us at N = 65536; its arithmetic (three lgammaf,
+// three expf, one log10f and one divide per variant) is negligible
+// against that. At N <= 4096 launch latency and the per-variant chain
+// of dependent operations decide its time, so the design spreads the
+// work and keeps every access to device memory coalesced:
+//
+// - a block owns kTile = 32 consecutive variants, one warp, so N = 1024
+//   runs on 32 SMs (and N = 4096 on all 128 of 132) instead of the 4
+//   that 256-thread blocks filled; the per-variant chains of different
+//   SMs run side by side;
+// - the block reads its [32,5] counts tile (640 bytes, a 16-byte
+//   multiple at a 16-byte offset) as 40 float4 loads, neighbouring
+//   threads on neighbouring addresses, into shared memory; a thread then
+//   reads its own row there (stride 5 floats: no bank conflicts). The
+//   ragged last tile takes masked scalar loads. The flag bytes load
+//   coalesced, one per thread;
+// - each thread writes its 24 results to a [32,24] row tile in shared
+//   memory (6 float4s), and the block stores the tile (3 KB) as 192
+//   float4 stores, neighbouring threads on neighbouring addresses: 6
+//   store instructions per thread, each warp-wide store one contiguous
+//   512 bytes, where one thread per row stored 24 scattered words (32
+//   rows 96 bytes apart per warp-wide store: eight times the L2
+//   transactions). The wrapper (ops/gl_kernel.py) refuses pointers that
+//   are not 16-byte aligned.
+//
+// There is no matrix product, so tensor cores (wgmma) have no place
+// here, and a tile of 640 bytes in and 3 KB out is too small for TMA
+// tensor maps or bulk copies to pay for their barriers.
 //
 // Integer fields must be bit-identical to the plain PyTorch twin
 // (ops/gl_kernel.py::genotype_rows_plain): GT and GQ come from
@@ -22,7 +49,8 @@
 // change the last ulp of s and can flip GQ. The score arithmetic uses
 // __fmul_rn/__fadd_rn, which never contract, and the file is built with
 // -fmad=false (ops/_build.py), so every other product and sum is also
-// rounded on its own, as PyTorch's eager ops do. No fast-math.
+// rounded on its own, as PyTorch's eager ops do. No fast-math
+// intrinsics: lgammaf, expf, log10f and the divide are the IEEE ones.
 
 #include <cstdint>
 #include <cstring>
@@ -32,6 +60,13 @@
 namespace {
 
 constexpr int kRow = 24;
+constexpr int kIn = 5;
+constexpr int kTile = 32;                    // variants per block = threads
+constexpr int kTileIn4 = kTile * kIn / 4;    // float4s of a full counts tile
+constexpr int kRow4 = kRow / 4;              // float4s per output row
+constexpr int kTileOut4 = kTile * kRow4;     // float4s of a full row tile
+static_assert(kTile % 4 == 0, "a counts tile must be a 16-byte multiple");
+
 constexpr float kLn10 = 2.302585092994046f;
 constexpr float kMaxGq = 200.0f;
 constexpr float kLog10Tiny = -323.6f;
@@ -48,17 +83,13 @@ __device__ __forceinline__ float as_int_field(float x) {
   return static_cast<float>(__float2int_rz(x));
 }
 
-__global__ void gl_rows_kernel(const float* __restrict__ counts,
-                               const uint8_t* __restrict__ is_dup,
-                               const uint8_t* __restrict__ force_null,
-                               float* __restrict__ rows, int n_rows,
-                               float split_weight, float disc_weight,
-                               Tables t) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows) return;
-  const float* c = counts + static_cast<size_t>(i) * 5;
+// One variant's GL stage → its 24 row values, in the reference's order
+// of operations.
+__device__ __forceinline__ void gl_row(const float* c, bool dup,
+                                       bool force_null, float split_weight,
+                                       float disc_weight, const Tables& t,
+                                       float* r) {
   const float rs = c[0], as_ = c[1], ac = c[2], rp = c[3], ap = c[4];
-  const int d = is_dup[i] != 0 ? 1 : 0;
 
   const float alt_split = as_ + ac;
   const float total = rs + as_ + ac + rp + ap;
@@ -81,7 +112,9 @@ __global__ void gl_rows_kernel(const float* __restrict__ counts,
   float s[3];
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
-    s[g] = __fadd_rn(__fmul_rn(k, t.lp[d][g]), __fmul_rn(nk, t.lq[d][g]));
+    const float lp = dup ? t.lp[1][g] : t.lp[0][g];
+    const float lq = dup ? t.lq[1][g] : t.lq[0][g];
+    s[g] = __fadd_rn(__fmul_rn(k, lp), __fmul_rn(nk, lq));
   }
 
   // best / second with ties → lowest index
@@ -101,13 +134,12 @@ __global__ void gl_rows_kernel(const float* __restrict__ counts,
 
   const float sq = fabsf(-10.0f * (s[0] - log_gt_sum));
   const float gq = truncf(fminf(-10.0f * (s_second - s_best), kMaxGq));
-  const bool null = force_null[i] != 0 || total <= 0.0f || underflow;
+  const bool null = force_null || total <= 0.0f || underflow;
   // AB denominator in the reference's order (((rs+rp)+alt_split)+ap)
   const float denom = rs + rp + alt_split + ap;
   const bool ab_valid = denom > 0.0f;
   const float ab = ab_valid ? (alt_split + ap) / denom : 0.0f;
 
-  float* r = rows + static_cast<size_t>(i) * kRow;
   r[0] = null ? 1.0f : 0.0f;
   r[1] = null ? -1.0f : static_cast<float>(best);
   r[2] = as_int_field(gq);
@@ -134,11 +166,57 @@ __global__ void gl_rows_kernel(const float* __restrict__ counts,
   r[23] = ap;
 }
 
+__global__ void __launch_bounds__(kTile)
+    gl_rows_kernel(const float* __restrict__ counts,
+                   const uint8_t* __restrict__ is_dup,
+                   const uint8_t* __restrict__ force_null,
+                   float* __restrict__ rows, int n_rows, float split_weight,
+                   float disc_weight, Tables t) {
+  __shared__ float4 s_in[kTileIn4];
+  __shared__ float4 s_out[kTileOut4];
+  const int tid = threadIdx.x;
+  const size_t first = static_cast<size_t>(blockIdx.x) * kTile;
+  // rows of this tile: kTile, or fewer in the last one
+  const int m = min(kTile, n_rows - static_cast<int>(first));
+
+  const float* src = counts + first * kIn;
+  if (m == kTile) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int j = tid; j < kTileIn4; j += kTile) s_in[j] = src4[j];
+  } else {
+    float* s_in_f = reinterpret_cast<float*>(s_in);
+    for (int j = tid; j < m * kIn; j += kTile) s_in_f[j] = src[j];
+  }
+  bool dup = false, fnull = false;
+  if (tid < m) {
+    dup = is_dup[first + tid] != 0;
+    fnull = force_null[first + tid] != 0;
+  }
+  __syncthreads();
+
+  if (tid < m) {
+    float r[kRow];
+    gl_row(reinterpret_cast<const float*>(s_in) + tid * kIn, dup, fnull,
+           split_weight, disc_weight, t, r);
+#pragma unroll
+    for (int q = 0; q < kRow4; ++q) {
+      s_out[tid * kRow4 + q] =
+          make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+    }
+  }
+  __syncthreads();
+
+  // a row is 6 whole float4s, so the ragged tile stores m * 6 of them
+  float4* dst = reinterpret_cast<float4*>(rows + first * kRow);
+  for (int j = tid; j < m * kRow4; j += kTile) dst[j] = s_out[j];
+}
+
 }  // namespace
 
 // counts [n,5] f32, is_dup/force_null [n] u8, rows [n,24] f32 (all
-// contiguous, on the device); tables: 12 host floats (lp[2][3] then
-// lq[2][3]). Launches on `stream` and returns cudaGetLastError().
+// contiguous, on the device; counts and rows 16-byte aligned); tables:
+// 12 host floats (lp[2][3] then lq[2][3]). Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int svt_gl_rows(const void* counts, const void* is_dup,
                            const void* force_null, void* rows, int n_rows,
                            float split_weight, float disc_weight,
@@ -146,9 +224,8 @@ extern "C" int svt_gl_rows(const void* counts, const void* is_dup,
   if (n_rows <= 0) return 0;
   Tables t;
   std::memcpy(&t, tables, sizeof(Tables));
-  constexpr int kThreads = 256;
-  const int blocks = (n_rows + kThreads - 1) / kThreads;
-  gl_rows_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (n_rows + kTile - 1) / kTile;
+  gl_rows_kernel<<<blocks, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(counts), static_cast<const uint8_t*>(is_dup),
       static_cast<const uint8_t*>(force_null), static_cast<float*>(rows),
       n_rows, split_weight, disc_weight, t);

@@ -2,7 +2,7 @@
 
 Counterpart of ``svtyper_tpu.evidence.device.classify_compact``: the
 host has already evaluated the integer window/strand/straddle
-predicates into flag bits (``svtyper_tpu.evidence.extract``); this
+predicates into flag bits (``evidence/extract.py``); this
 applies every float op — prob_mapq weighting, the §4.3 insert-density
 re-partition and the per-variant sums — and returns ``[n_var, 5]``
 counts. The full-column ``classify`` is not ported: it stays the JAX
@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from svtyper_tpu.evidence.extract import (
+from svtyper_tpu_torch.evidence.extract import (
     LIB_INVALID,
     P_ALT,
     P_ALTREC,

@@ -2,7 +2,7 @@
 
 Counterpart of ``svtyper_tpu.gt.engine.TpuEngine``. The host prepares
 each chunk's compact wire (native ``svt_fetch_chunk`` through
-``svtyper_tpu.evidence.extract``), one per device shard, ships each as
+``evidence/extract.py``), one per device shard, ships each as
 ONE uint8 buffer and one host-to-device copy, and one device step per
 shard runs unwire → ``classify_compact`` → the GL stage, producing the
 packed ``[N,24]`` rows that ``cli/fast_emit.py`` formats. Where the JAX
@@ -18,6 +18,11 @@ that kernel's plain twin instead.
 The row layout helpers (``INT_FIELDS`` … ``row_to_result``,
 ``pack_wire``, ``_repad_compact``) are jax-free copies of the JAX
 engine's, so the CLI and emitter need nothing from ``svtyper_tpu.gt``.
+
+On CUDA the engine needs the native BAM decoder and raises when it did
+not build or load (``bamio.native.require_lib``): the pure-Python
+decoder would bound every chunk at ~100x the time, without any other
+sign.
 """
 
 from __future__ import annotations
@@ -28,16 +33,17 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from svtyper_tpu.breakpoints import Breakpoint
-from svtyper_tpu.evidence.extract import (
+from svtyper_tpu_torch.bamio.native import require_lib
+from svtyper_tpu_torch.breakpoints import Breakpoint
+from svtyper_tpu_torch.evidence.extract import (
     COMPACT_KEYS,
     VARS_BOOL,
     compact_chunk,
     prepare_chunk,
     prepare_compact_chunk,
 )
-from svtyper_tpu.models.bayes import GT_STRINGS, GenotypeResult
-from svtyper_tpu.stats.library import Sample
+from svtyper_tpu_torch.models.bayes import GT_STRINGS, GenotypeResult
+from svtyper_tpu_torch.stats.library import Sample
 from svtyper_tpu_torch.evidence.device import classify_compact
 from svtyper_tpu_torch.ops.gl import genotype_batch, log_choose_table
 from svtyper_tpu_torch.ops import gl_kernel
@@ -224,6 +230,8 @@ class TorchEngine:
         self.max_ci_dist = max_ci_dist
         self.chunk_size = chunk_size
         self._cuda = self.devices[0].type == "cuda"
+        if self._cuda:
+            require_lib()
         # per-device state: the f64 log-choose table (the float64 GL
         # branch only; the float32 stage takes lc from lgamma) and each
         # sample's insert densities, keyed by (sample, device)

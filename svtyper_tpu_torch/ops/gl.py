@@ -24,7 +24,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from svtyper_tpu.models.bayes import ALT_PROBS, ALT_PROBS_DUP
+from svtyper_tpu_torch.models.bayes import ALT_PROBS, ALT_PROBS_DUP
 
 MAX_GQ = 200.0
 # smallest float64 subnormal is 10**-323.6; below that the oracle's naive

@@ -2,8 +2,10 @@
 
 ``genotype_rows`` is the engine's float32 GL stage. It replaces
 ``svtyper_tpu/ops/pallas_gl.py::genotype_batch_pallas``: on a CUDA
-tensor it launches ``csrc/gl_kernel.cu`` (one thread per variant,
-writing the packed ``[N,24]`` rows directly) and on a CPU tensor it runs
+tensor it launches ``csrc/gl_kernel.cu`` (a 32-variant tile per block,
+one variant per thread, coalesced float4 loads and stores through shared
+memory, writing the packed ``[N,24]`` rows directly) and on a CPU tensor
+it runs
 ``genotype_rows_plain``, the same function in PyTorch eager with the
 same float32 op order. Any other device raises; there is no fallback
 from the kernel to the twin.
@@ -147,7 +149,7 @@ def genotype_rows_plain(
     )
 
 
-def _check(name, t, dtype, shape, device):
+def _check(name, t, dtype, shape, device, align=1):
     if t.device != device:
         raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
     if t.dtype != dtype:
@@ -157,6 +159,9 @@ def _check(name, t, dtype, shape, device):
                          % (name, tuple(t.shape), shape))
     if not t.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
+    if t.data_ptr() % align:
+        raise ValueError("%s must start at a %d-byte boundary (the kernel "
+                         "moves it as float4)" % (name, align))
 
 
 @functools.lru_cache(maxsize=1)
@@ -181,17 +186,19 @@ def genotype_rows_cuda(
     disc_weight: float = 1.0,
 ) -> torch.Tensor:
     """Launch ``csrc/gl_kernel.cu`` on the current stream → [N,24] f32.
-    Takes counts [N,5] float32 and is_dup/force_null [N] uint8, all
-    contiguous on one CUDA device."""
+    Takes counts [N,5] float32, 16-byte aligned, and is_dup/force_null
+    [N] uint8, all contiguous on one CUDA device."""
     global LAUNCHES
     dev = counts.device
     if dev.type != "cuda":
         raise ValueError("genotype_rows_cuda needs CUDA tensors, got %s" % dev)
     n = counts.shape[0]
-    _check("counts", counts, torch.float32, (n, 5), dev)
+    _check("counts", counts, torch.float32, (n, 5), dev, align=16)
     _check("is_dup", is_dup, torch.uint8, (n,), dev)
     _check("force_null", force_null, torch.uint8, (n,), dev)
     rows = torch.empty((n, ROW_WIDTH), dtype=torch.float32, device=dev)
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start at a 16-byte boundary")
     if n == 0:
         return rows
     fn = _entry()

@@ -19,17 +19,17 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     """Run ``TorchEngine`` over ``[device] * n_devices`` (a device may
     repeat, so one card or the CPU stands in for several) with
     ``chunk_size = 2 * n_devices``; every variant must be called."""
-    from svtyper_tpu.bamio.bam import BamFile
-    from svtyper_tpu.breakpoints import resolve_breakpoint
-    from svtyper_tpu.simulate import (
+    from svtyper_tpu_torch.bamio.bam import BamFile
+    from svtyper_tpu_torch.breakpoints import resolve_breakpoint
+    from svtyper_tpu_torch.simulate import (
         Event,
         SimConfig,
         events_to_vcf,
         simulate_events,
     )
-    from svtyper_tpu.stats import Sample
-    from svtyper_tpu.vcfio.model import Variant, Vcf
-    from svtyper_tpu.vcfio.reader import read_vcf_lines
+    from svtyper_tpu_torch.stats import Sample
+    from svtyper_tpu_torch.vcfio.model import Variant, Vcf
+    from svtyper_tpu_torch.vcfio.reader import read_vcf_lines
     from svtyper_tpu_torch.gt.engine import TorchEngine
 
     refs = [("chr1", 1_200_000)]

@@ -22,11 +22,15 @@ none; the CPU runs only when a caller passes ``device="cpu"``.
 install it before it imports anything of the port.
 """
 
+# what the port never imports: jax, and the JAX package itself
+REFUSED = ("jax", "jaxlib", "svtyper_tpu")
+
 
 class RefuseJax:
-    """Meta-path hook: the port runs without jax."""
+    """Meta-path hook: the port runs without jax and without the JAX
+    package (``svtyper_tpu``; ``svtyper_tpu_torch`` is the port)."""
 
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax."):
-            raise ImportError("jax import refused (%s)" % name)
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("import refused (%s)" % name)
         return None

@@ -12,7 +12,7 @@ in the same directory (the JAX script writes them to
 
     python -m svtyper_tpu_torch.tools.dump_chunk_args <bam> <vcf> /tmp/chunkbin
     cp /tmp/chunkbin/chunk_names.txt /tmp/
-    cd svtyper_tpu/bamio/_native && \\
+    cd svtyper_tpu_torch/bamio/_native && \\
         g++ -O2 -pg -std=c++17 ../../../scripts/native_profile/replay_harness.cpp \\
         bamcore.cpp -o /tmp/replay -lz -pthread
     /tmp/replay <bam> 30 1 && gprof -b /tmp/replay gmon.out | head -30
@@ -29,7 +29,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from svtyper_tpu.bamio import native
+from svtyper_tpu_torch.bamio import native
 from svtyper_tpu_torch.gt.engine import TorchEngine
 from svtyper_tpu_torch.tools import common
 from svtyper_tpu_torch.utils import fixture

@@ -6,11 +6,16 @@ script (``default_rng(7)``, ``gamma(2, 10)`` counts, 10% of rows zeroed,
 ``gl_kernel.genotype_rows_cuda`` and its plain twin
 ``genotype_rows_plain`` against ``ops/gl.py::genotype_batch`` in float32:
 the 14 integer fields must be exact, and it reports the SQ max abs
-difference. On CUDA it times each over 100 launches with CUDA events and
-prints one JSON line per N. ``device="cpu"`` checks the twin alone and
-times nothing.
+difference. On CUDA it times each over 100 launches with CUDA events
+(``*_call_ms``/``*_ms``: the host's call included) and the kernel alone
+as ``kernel_device_ms``: 100 launches captured in one CUDA graph,
+replayed between CUDA events, so the host is left out. Beside that it
+puts the kernel's bound (``bound_ms``: the bytes it must move over the
+card's memory rate, or its operations over the float32 rate, whichever
+is larger) and the share of it the kernel reaches. It prints one JSON
+line per N. ``device="cpu"`` checks the twin alone and times nothing.
 
-    python -m svtyper_tpu_torch.tools.gl_bench [N ...]   # 1024 65536
+    python -m svtyper_tpu_torch.tools.gl_bench [N ...]   # 1024 4096 65536
 """
 
 from __future__ import annotations
@@ -26,8 +31,22 @@ from svtyper_tpu_torch.ops import gl_kernel
 from svtyper_tpu_torch.ops.gl import genotype_batch, log_choose_table
 from svtyper_tpu_torch.tools import common
 
-SIZES = (1024, 65536)
+SIZES = (1024, 4096, 65536)
 ITERS = 100
+# what only a run on the card measures
+DEVICE_KEYS = ("kernel_call_ms", "kernel_device_ms", "twin_ms",
+               "genotype_batch_ms", "bound_share")
+NOT_MEASURED = "not measured (CPU run)"
+# one H100 SXM at its full 700 W (NVIDIA's data sheet): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# per variant: counts [5] f32 and two flag bytes in, one [24] f32 row out
+BYTES_PER_VARIANT = 5 * 4 + 2 + 24 * 4
+# per variant, counted from csrc/gl_kernel.cu's gl_row: each add,
+# multiply, compare, select, conversion and each lgammaf / expf / log10f
+# / divide as one operation; the bytes bound it ~20x above this
+OPS_PER_VARIANT = 120
 _NI = len(INT_FIELDS)
 _SQ = _NI + 3  # the SQ column of the [N,24] rows
 
@@ -58,6 +77,40 @@ def time_ms(fn, iters: int = ITERS, warmup: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int = ITERS) -> float:
+    """Mean device time of one ``fn()`` with the host left out: ``iters``
+    calls captured in one CUDA graph, one replay between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capturing stream, as capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound(n: int):
+    """→ (bytes moved, least ms the card could take, "bytes" or
+    "operations") for the GL stage over ``n`` variants."""
+    nbytes = n * BYTES_PER_VARIANT
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = n * OPS_PER_VARIANT / PEAK_F32_S * 1e3
+    if by_bytes >= by_ops:
+        return nbytes, by_bytes, "bytes"
+    return nbytes, by_ops, "operations"
+
+
 def bench(n: int, device: str) -> dict:
     """Check (and on CUDA time) the GL stages at ``n`` → one result."""
     counts, is_dup, force_null = gl_inputs(n)
@@ -82,13 +135,20 @@ def bench(n: int, device: str) -> dict:
         out["sq_max_abs_diff_" + name] = float(
             (rows[:, _SQ] - ref["sq"]).abs().max()
         )
+    out["bytes"], out["bound_ms"], out["bound_by"] = bound(n)
     if not cuda:
-        out["timed"] = "not measured (CPU run)"
+        out.update(dict.fromkeys(DEVICE_KEYS, NOT_MEASURED))
         return out
     out["iters"] = ITERS
-    out["kernel_ms"] = time_ms(lambda: gl_kernel.genotype_rows_cuda(c, d, f))
+
+    def kernel():
+        return gl_kernel.genotype_rows_cuda(c, d, f)
+
+    out["kernel_call_ms"] = time_ms(kernel)
+    out["kernel_device_ms"] = graph_ms(kernel)
     out["twin_ms"] = time_ms(lambda: gl_kernel.genotype_rows_plain(c, d, f))
     out["genotype_batch_ms"] = time_ms(lambda: genotype_batch(c, d, f, lcf))
+    out["bound_share"] = out["bound_ms"] / out["kernel_device_ms"]
     return out
 
 

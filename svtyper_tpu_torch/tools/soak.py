@@ -42,7 +42,7 @@ from typing import Iterable, List, Optional
 
 import torch
 
-from svtyper_tpu.breakpoints import Breakpoint
+from svtyper_tpu_torch.breakpoints import Breakpoint
 from svtyper_tpu_torch.gt.engine import TorchEngine
 from svtyper_tpu_torch.tools import common
 from svtyper_tpu_torch.utils import fixture

@@ -2,7 +2,7 @@
 
 The event generator is ``bench.py::build_fixture``'s (DEL-heavy,
 LUMPY-like: DEL/DEL/DEL/DUP/INV, 300-6000 bp, one event per 20 kb,
-seed 42), and the reads come from ``svtyper_tpu.simulate`` with its
+seed 42), and the reads come from the port's ``simulate`` with its
 defaults: 150 bp paired-end reads, insert 350±40, mapq mix
 60/60/60/40/27, at the depth given (30× for a WGS sample).
 """
@@ -14,7 +14,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from svtyper_tpu.simulate import Event, SimConfig, events_to_vcf, simulate_events
+from svtyper_tpu_torch.simulate import Event, SimConfig, events_to_vcf, simulate_events
 
 
 def bench_events(n_events: int, seed: int = 42):
@@ -75,7 +75,7 @@ def tile_vcf(src: str, dst: str, n: int, prefix: str = "t") -> None:
 
 def decoder_name() -> str:
     """Which BAM decoder this process loaded."""
-    from svtyper_tpu.bamio.native import get_lib
+    from svtyper_tpu_torch.bamio.native import get_lib
 
     return "native libsvtbam.so" if get_lib() is not None else "pure-Python"
 
@@ -86,11 +86,11 @@ def load_sample_and_breakpoints(
     """→ (Sample, the first ``n`` records' breakpoints, every record's
     when ``n`` is None) for driving ``TorchEngine`` directly. The default
     ``num_samp`` is the JAX scripts' library sample."""
-    from svtyper_tpu.bamio.bam import open_bam
-    from svtyper_tpu.breakpoints import resolve_breakpoint
-    from svtyper_tpu.stats import Sample
-    from svtyper_tpu.vcfio.model import Variant, Vcf
-    from svtyper_tpu.vcfio.reader import read_vcf_lines
+    from svtyper_tpu_torch.bamio.bam import open_bam
+    from svtyper_tpu_torch.breakpoints import resolve_breakpoint
+    from svtyper_tpu_torch.stats import Sample
+    from svtyper_tpu_torch.vcfio.model import Variant, Vcf
+    from svtyper_tpu_torch.vcfio.reader import read_vcf_lines
 
     sample = Sample.from_bam(open_bam(bam), num_samp=num_samp)
     v = Vcf()

@@ -21,7 +21,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from svtyper_tpu.utils.formatting import fmt_g2
+from svtyper_tpu_torch.utils.formatting import fmt_g2
 
 N_INT = 14
 

@@ -20,9 +20,14 @@ import numpy as np
 import pytest
 import torch
 
-from svtyper_tpu.simulate import Event, SimConfig, events_to_vcf, simulate_events
 from svtyper_tpu_torch.cli import classic as tclassic
 from svtyper_tpu_torch.cli.sso import main as tsso_main
+from svtyper_tpu_torch.simulate import (
+    Event,
+    SimConfig,
+    events_to_vcf,
+    simulate_events,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "data")
@@ -178,7 +183,7 @@ def test_fast_vs_object_emission_two_samples(tmp_path, monkeypatch):
 
 
 def test_fast_emit_copy_matches_original():
-    """The port's fast_emit (a copy with one import changed) formats 512
+    """The port's fast_emit (a copy with its imports changed) formats 512
     random packed rows exactly as the original does (the
     tests/test_fast_emit.py fuzz rows)."""
     from svtyper_tpu.cli import fast_emit as jfe
@@ -223,8 +228,8 @@ def test_unported_modes_raise(monkeypatch, pe_fixture, tmp_path, capsys):
     one device. Without CUDA the CLI's default device still refuses."""
     import json
 
-    from svtyper_tpu.bamio.bam import BamFile
-    from svtyper_tpu.bamio.native import get_lib
+    from svtyper_tpu_torch.bamio.bam import BamFile
+    from svtyper_tpu_torch.bamio.native import get_lib
 
     out = str(tmp_path / "o.vcf")
     prof = tmp_path / "prof"
@@ -266,8 +271,8 @@ import sys
 
 class RefuseJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax."):
-            raise ImportError("jax refused: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "svtyper_tpu"):
+            raise ImportError("refused: " + name)
 
 sys.meta_path.insert(0, RefuseJax())
 import svtyper_tpu_torch
@@ -280,7 +285,7 @@ import svtyper_tpu_torch.parallel.multihost
 import svtyper_tpu_torch.utils.fixture
 import svtyper_tpu_torch.utils.parity
 import chip_smoke
-assert "jax" not in sys.modules
+assert "jax" not in sys.modules and "svtyper_tpu" not in sys.modules
 print("ok")
 """
 

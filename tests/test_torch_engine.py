@@ -1,7 +1,9 @@
 """TorchEngine (CPU, float64) against TpuEngine and the float64 oracle,
 on the tests/test_engine_parity.py fixture (DEL, DUP, INV, BND, small
 DEL, low depth, no coverage), plus ``dens_state`` and the engine's
-device refusals.
+device refusals. The port's engine takes its inputs from the port's
+host half, the JAX engines theirs from the JAX package's, both on the
+same simulated BAM.
 
 Rows: the 14 integer fields equal TpuEngine's exactly; the floats to
 1e-12 relative (torch's CPU pow/log10 and XLA's differ by an ulp).
@@ -14,17 +16,29 @@ import numpy as np
 import pytest
 import torch
 
-from svtyper_tpu.bamio.bam import BamFile
-from svtyper_tpu.breakpoints import resolve_breakpoint
+from svtyper_tpu.bamio.bam import BamFile as JBamFile
+from svtyper_tpu.breakpoints import resolve_breakpoint as jresolve
 from svtyper_tpu.gt import TpuEngine
-from svtyper_tpu.oracle import OracleEngine
-from svtyper_tpu.simulate import Event, SimConfig, events_to_vcf, simulate_events
-from svtyper_tpu.stats import Sample
-from svtyper_tpu.utils.formatting import fmt_f2, fmt_g2, fmt_gl
-from svtyper_tpu.vcfio.model import Variant, Vcf
-from svtyper_tpu.vcfio.reader import read_vcf_lines
+from svtyper_tpu.oracle import OracleEngine as JOracleEngine
+from svtyper_tpu.stats import Sample as JSample
+from svtyper_tpu.vcfio.model import Variant as JVariant
+from svtyper_tpu.vcfio.model import Vcf as JVcf
+from svtyper_tpu.vcfio.reader import read_vcf_lines as jread_vcf_lines
+from svtyper_tpu_torch.bamio.bam import BamFile
+from svtyper_tpu_torch.breakpoints import resolve_breakpoint
 from svtyper_tpu_torch.gt import engine as teng
 from svtyper_tpu_torch.gt.engine import TorchEngine, dens_state
+from svtyper_tpu_torch.oracle import OracleEngine
+from svtyper_tpu_torch.simulate import (
+    Event,
+    SimConfig,
+    events_to_vcf,
+    simulate_events,
+)
+from svtyper_tpu_torch.stats import Sample
+from svtyper_tpu_torch.utils.formatting import fmt_f2, fmt_g2, fmt_gl
+from svtyper_tpu_torch.vcfio.model import Variant, Vcf
+from svtyper_tpu_torch.vcfio.reader import read_vcf_lines
 
 REFS = [("chr1", 10_000_000), ("chr2", 5_000_000)]
 
@@ -42,26 +56,39 @@ EVENTS = [
 ]
 
 
+NO_COV = "chr2\t4000000\tnocov\tN\t<DEL>\t.\t.\tSVTYPE=DEL;END=4002000"
+
+
 @pytest.fixture(scope="module")
-def setup(tmp_path_factory):
-    d = tmp_path_factory.mktemp("torch_parity")
-    bam_path = str(d / "sim.bam")
+def sim_bam(tmp_path_factory):
+    bam_path = str(tmp_path_factory.mktemp("torch_parity") / "sim.bam")
     simulate_events(
         bam_path, REFS, EVENTS, SimConfig(depth=40), seed=11,
         extra_background=3000,
     )
+    return bam_path
+
+
+def _load(bam_path, BamFile, Sample, Vcf, Variant, read_vcf_lines, resolve):
+    """(sample, variants, breakpoints) through one package's host half."""
     sample = Sample.from_bam(BamFile(bam_path), num_samp=100_000)
     vcf = Vcf()
     header, body = read_vcf_lines(io.StringIO(events_to_vcf(EVENTS, REFS)))
     vcf.add_header(header)
-    variants = [Variant(line, vcf) for line in body]
-    bps = [resolve_breakpoint(v) for v in variants]
-    no_cov = Variant(
-        "chr2\t4000000\tnocov\tN\t<DEL>\t.\t.\tSVTYPE=DEL;END=4002000", vcf
-    )
-    variants.append(no_cov)
-    bps.append(resolve_breakpoint(no_cov))
-    return sample, variants, bps
+    variants = [Variant(line, vcf) for line in list(body) + [NO_COV]]
+    return sample, variants, [resolve(v) for v in variants]
+
+
+@pytest.fixture(scope="module")
+def setup(sim_bam):
+    return _load(sim_bam, BamFile, Sample, Vcf, Variant, read_vcf_lines,
+                 resolve_breakpoint)
+
+
+@pytest.fixture(scope="module")
+def jax_setup(sim_bam):
+    return _load(sim_bam, JBamFile, JSample, JVcf, JVariant, jread_vcf_lines,
+                 jresolve)
 
 
 def _fmt_row(res):
@@ -85,10 +112,11 @@ def _rows(engine, bps):
     )
 
 
-def test_rows_match_tpu_engine(setup):
+def test_rows_match_tpu_engine(setup, jax_setup):
     sample, variants, bps = setup
+    jsample, _, jbps = jax_setup
     got = _rows(TorchEngine([sample], device="cpu"), bps)
-    want = _rows(TpuEngine([sample]), bps)
+    want = _rows(TpuEngine([jsample]), jbps)
     assert got.shape == want.shape == (len(bps), teng.ROW_WIDTH)
     np.testing.assert_array_equal(got[:, : teng._NI], want[:, : teng._NI])
     np.testing.assert_allclose(
@@ -96,12 +124,13 @@ def test_rows_match_tpu_engine(setup):
     )
 
 
-def test_engine_matches_oracle(setup):
+def test_engine_matches_oracle(setup, jax_setup):
     sample, variants, bps = setup
-    oracle = OracleEngine([sample])
+    jsample, _, jbps = jax_setup
+    oracle = JOracleEngine([jsample])
     engine = TorchEngine([sample], device="cpu")
     eng_results = engine.genotype_all(bps)
-    for var, bp, eng_row in zip(variants, bps, eng_results):
+    for var, bp, eng_row in zip(variants, jbps, eng_results):
         orc = oracle.genotype_variant(bp)[0]
         eng = eng_row[0]
         assert eng.null == orc.null, var.var_id
@@ -174,9 +203,10 @@ def test_multisample_rows_equal_single(setup):
         np.testing.assert_array_equal(rows[:n], alone)
 
 
-def test_row_layout_copies_match_jax(setup):
+def test_row_layout_copies_match_jax(setup, jax_setup):
     """The jax-free copies of the JAX engine's row layout and wire
-    helpers give what the originals give."""
+    helpers give what the originals give, each on its own package's
+    oracle results."""
     from svtyper_tpu.evidence.extract import compact_chunk
     from svtyper_tpu.gt import engine as jeng
     from svtyper_tpu.parallel.synth import make_synthetic_chunk
@@ -185,11 +215,15 @@ def test_row_layout_copies_match_jax(setup):
         jeng.INT_FIELDS, jeng._I, jeng._NI, jeng.ROW_WIDTH
     )
     sample, variants, bps = setup
-    oracle = OracleEngine([sample])
-    results = [None] + [oracle.genotype_variant(bp)[0] for bp in bps]
-    for r in results:
+    jsample, _, jbps = jax_setup
+    oracle, joracle = OracleEngine([sample]), JOracleEngine([jsample])
+    results = [(None, None)] + [
+        (oracle.genotype_variant(bp)[0], joracle.genotype_variant(jbp)[0])
+        for bp, jbp in zip(bps, jbps)
+    ]
+    for r, jr in results:
         row = teng.result_to_row(r)
-        np.testing.assert_array_equal(row, jeng.result_to_row(r))
+        np.testing.assert_array_equal(row, jeng.result_to_row(jr))
         a, b = teng.row_to_result(row), jeng.row_to_result(row)
         assert [getattr(a, k) for k in a.__slots__] == [
             getattr(b, k) for k in b.__slots__

@@ -16,9 +16,13 @@ import torch
 
 from svtyper_tpu.evidence.device import classify_compact as jax_classify_compact
 from svtyper_tpu.evidence.device import prob_mapq as jax_prob_mapq
-from svtyper_tpu.evidence.extract import COMPACT_KEYS, compact_chunk, prepare_chunk
 from svtyper_tpu.oracle.engine import prob_mapq as oracle_prob_mapq
 from svtyper_tpu.parallel.synth import make_synthetic_chunk
+from svtyper_tpu_torch.evidence.extract import (
+    COMPACT_KEYS,
+    compact_chunk,
+    prepare_chunk,
+)
 from svtyper_tpu_torch.evidence.device import (
     PROB_MAPQ,
     _sorted_segment_sum,
@@ -46,14 +50,20 @@ def test_prob_mapq_table_is_the_oracle():
 
 @pytest.fixture(scope="module")
 def real_chunk(tmp_path_factory):
-    """Simulated BAM through prepare_chunk: every SV type, padding rows,
-    SA splits, soft clips (the tests/test_compact.py fixture)."""
-    from svtyper_tpu.bamio.bam import BamFile
-    from svtyper_tpu.breakpoints import resolve_breakpoint
-    from svtyper_tpu.simulate import Event, SimConfig, events_to_vcf, simulate_events
-    from svtyper_tpu.stats import Sample
-    from svtyper_tpu.vcfio.model import Variant, Vcf
-    from svtyper_tpu.vcfio.reader import read_vcf_lines
+    """Simulated BAM through the port's prepare_chunk: every SV type,
+    padding rows, SA splits, soft clips (the tests/test_compact.py
+    fixture)."""
+    from svtyper_tpu_torch.bamio.bam import BamFile
+    from svtyper_tpu_torch.breakpoints import resolve_breakpoint
+    from svtyper_tpu_torch.simulate import (
+        Event,
+        SimConfig,
+        events_to_vcf,
+        simulate_events,
+    )
+    from svtyper_tpu_torch.stats import Sample
+    from svtyper_tpu_torch.vcfio.model import Variant, Vcf
+    from svtyper_tpu_torch.vcfio.reader import read_vcf_lines
 
     refs = [("chr1", 6_000_000)]
     events = [

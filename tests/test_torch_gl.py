@@ -168,13 +168,15 @@ def test_genotype_rows_dispatch():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_twin_on_card():
+@pytest.mark.parametrize("n", [1, 17, 31, 33, 1000, 4096, 4097])
+def test_kernel_matches_twin_on_card(n):
     """The CUDA kernel against its twin on the card (the same check as
-    chip_smoke.py phase 3)."""
+    chip_smoke.py phase 3), at N below, at and off a multiple of its
+    32-variant tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for grid in GRIDS.values():
-        counts, is_dup, force_null = grid(4096)
+        counts, is_dup, force_null = grid(n)
         args = (
             torch.tensor(counts, dtype=torch.float32, device="cuda"),
             torch.tensor(is_dup, dtype=torch.uint8, device="cuda"),
@@ -185,4 +187,5 @@ def test_kernel_matches_twin_on_card():
         np.testing.assert_array_equal(got[:, :14], want[:, :14])
         ref, _, _ = rows_split(want)
         _, ints, flts = rows_split(got)
-        assert_format_parity(ref, ints, flts, 4096)
+        assert_format_parity(ref, ints, flts, n,
+                             min_checked=101 if n >= 1000 else 0)

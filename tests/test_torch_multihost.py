@@ -17,9 +17,14 @@ import sys
 import numpy as np
 import pytest
 
-from svtyper_tpu.simulate import Event, SimConfig, events_to_vcf, simulate_events
 from svtyper_tpu_torch.cli import classic as tclassic
 from svtyper_tpu_torch.parallel import multihost
+from svtyper_tpu_torch.simulate import (
+    Event,
+    SimConfig,
+    events_to_vcf,
+    simulate_events,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFS = [("chr1", 6_000_000)]

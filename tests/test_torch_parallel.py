@@ -15,19 +15,24 @@ import numpy as np
 import pytest
 import torch
 
-from svtyper_tpu.bamio.bam import BamFile
-from svtyper_tpu.breakpoints import resolve_breakpoint
+from svtyper_tpu import bamio as jbamio
+from svtyper_tpu import breakpoints as jbreakpoints
+from svtyper_tpu import output as joutput
+from svtyper_tpu import stats as jstats
+from svtyper_tpu import vcfio as jvcfio
 from svtyper_tpu.gt import TpuEngine
-from svtyper_tpu.output import add_format_headers, apply_variant
 from svtyper_tpu.parallel import multihost as jmh
-from svtyper_tpu.simulate import Event, SimConfig, events_to_vcf, simulate_events
-from svtyper_tpu.stats import Sample
-from svtyper_tpu.vcfio.model import Variant, Vcf
-from svtyper_tpu.vcfio.reader import read_vcf_lines
+from svtyper_tpu_torch import bamio, breakpoints, output, stats, vcfio
 from svtyper_tpu_torch.gt import engine as teng
 from svtyper_tpu_torch.gt.engine import TorchEngine
 from svtyper_tpu_torch.parallel import multihost as tmh
 from svtyper_tpu_torch.parallel.dryrun import dryrun_multichip
+from svtyper_tpu_torch.simulate import (
+    Event,
+    SimConfig,
+    events_to_vcf,
+    simulate_events,
+)
 
 CPU8 = ["cpu"] * 8
 
@@ -43,8 +48,13 @@ def test_shard_slices_match_jax(n_shards):
         assert sl[-1][1] == n and len(sl) == n_shards
 
 
+# a package's host half: (bamio, breakpoints, output, stats, vcfio)
+PORT = (bamio, breakpoints, output, stats, vcfio)
+JAX = (jbamio, jbreakpoints, joutput, jstats, jvcfio)
+
+
 @pytest.fixture(scope="module")
-def del13(tmp_path_factory):
+def del13_files(tmp_path_factory):
     """tests/test_parallel.py's 13-DEL fixture (not a multiple of 8)."""
     d = tmp_path_factory.mktemp("torch_parallel")
     refs = [("chr1", 4_000_000)]
@@ -57,26 +67,43 @@ def del13(tmp_path_factory):
     bam_path = str(d / "md.bam")
     simulate_events(bam_path, refs, events, SimConfig(depth=30), seed=9,
                     extra_background=1000)
-    sample = Sample.from_bam(BamFile(bam_path), num_samp=50_000)
-    vcf = Vcf()
-    header, body = read_vcf_lines(io.StringIO(events_to_vcf(events, refs)))
+    return bam_path, events_to_vcf(events, refs)
+
+
+def _load(files, pkg):
+    bam_path, vcf_text = files
+    bamio_, _, output_, stats_, vcfio_ = pkg
+    sample = stats_.Sample.from_bam(bamio_.BamFile(bam_path), num_samp=50_000)
+    vcf = vcfio_.Vcf()
+    header, body = vcfio_.read_vcf_lines(io.StringIO(vcf_text))
     vcf.add_header(header)
-    add_format_headers(vcf)
+    output_.add_format_headers(vcf)
     vcf.add_sample(sample.name)
     return sample, vcf, list(body)
 
 
-def _render(sample, vcf, body, rows):
+@pytest.fixture(scope="module")
+def del13(del13_files):
+    return _load(del13_files, PORT)
+
+
+@pytest.fixture(scope="module")
+def jax_del13(del13_files):
+    return _load(del13_files, JAX)
+
+
+def _render(sample, vcf, body, rows, pkg=PORT):
     out = []
     for line, row in zip(body, rows):
-        v = Variant(line, vcf)
-        apply_variant(v, [sample.name], row)
+        v = pkg[4].Variant(line, vcf)
+        pkg[2].apply_variant(v, [sample.name], row)
         out.append(v.get_var_string())
     return "\n".join(out)
 
 
-def _bps(vcf, body):
-    return [resolve_breakpoint(Variant(line, vcf)) for line in body]
+def _bps(vcf, body, pkg=PORT):
+    return [pkg[1].resolve_breakpoint(pkg[4].Variant(line, vcf))
+            for line in body]
 
 
 def _raw(engine, bps):
@@ -85,7 +112,7 @@ def _raw(engine, bps):
     )
 
 
-def test_engine_8_shards_byte_identical_f64(del13):
+def test_engine_8_shards_byte_identical_f64(del13, jax_del13):
     sample, vcf, body = del13
     bps = _bps(vcf, body)
     multi = TorchEngine([sample], chunk_size=8, devices=CPU8)
@@ -99,9 +126,11 @@ def test_engine_8_shards_byte_identical_f64(del13):
     assert sum(1 for r in rows_m if not r[0].null) == len(bps)
 
     assert len(jax.devices()) == 8  # conftest virtual mesh
-    jeng = TpuEngine([sample], chunk_size=8)
+    jsample, jvcf, jbody = jax_del13
+    jeng = TpuEngine([jsample], chunk_size=8)
     assert jeng.n_dev == 8
-    assert got == _render(sample, vcf, body, jeng.genotype_all(bps))
+    assert got == _render(jsample, jvcf, jbody,
+                          jeng.genotype_all(_bps(jvcf, jbody, JAX)), JAX)
 
 
 def test_engine_8_shards_f32_int_fields(del13):

@@ -16,6 +16,7 @@ JAX package and its scripts, on one small simulated sample.
   unless a caller names the CPU.
 """
 
+import itertools
 import os
 import subprocess
 import sys
@@ -25,10 +26,15 @@ import numpy as np
 import pytest
 import torch
 
+from svtyper_tpu.bamio.bam import open_bam as jopen_bam
+from svtyper_tpu.breakpoints import resolve_breakpoint as jresolve
 from svtyper_tpu.gt import TpuEngine
 from svtyper_tpu.ops import gl as jgl
 from svtyper_tpu.ops.pallas_gl import genotype_batch_pallas
-from svtyper_tpu.simulate import SimConfig, events_to_vcf, simulate_events
+from svtyper_tpu.stats import Sample as JSample
+from svtyper_tpu.vcfio.model import Variant as JVariant
+from svtyper_tpu.vcfio.model import Vcf as JVcf
+from svtyper_tpu.vcfio.reader import read_vcf_lines as jread_vcf_lines
 from svtyper_tpu_torch.gt import engine as teng
 from svtyper_tpu_torch.gt.engine import TorchEngine
 from svtyper_tpu_torch.ops import gl_kernel
@@ -40,6 +46,7 @@ from svtyper_tpu_torch.tools import (
     scaling_curve,
     soak,
 )
+from svtyper_tpu_torch.simulate import SimConfig, events_to_vcf, simulate_events
 from svtyper_tpu_torch.utils import fixture
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,6 +77,18 @@ def sample_files(tmp_path_factory):
     return bam, vcf, tiled
 
 
+def _jax_sample_and_breakpoints(bam, vcf):
+    """``fixture.load_sample_and_breakpoints`` through the JAX package's
+    host half, for its engine."""
+    sample = JSample.from_bam(jopen_bam(bam), num_samp=200_000)
+    v = JVcf()
+    with open(vcf) as fh:
+        header, body = jread_vcf_lines(fh)
+        v.add_header(header)
+        bps = [jresolve(JVariant(line, v)) for line in body]
+    return sample, bps
+
+
 def _split(rows):
     return rows[:, : teng._NI], rows[:, teng._NI:]
 
@@ -85,16 +104,18 @@ def _assert_rows_equal(got, want):
 def test_soak_stream_matches_tpu_engine(sample_files):
     bam, vcf, _ = sample_files
     sample, base = fixture.load_sample_and_breakpoints(bam, vcf)
+    jsample, jbase = _jax_sample_and_breakpoints(bam, vcf)
     n = 3000
 
-    def rows(engine):
+    def rows(engine, bps):
         return np.concatenate([
-            a[0][:k] for k, a in
-            engine.genotype_stream(soak.fresh_stream(base, n), raw=True)
+            a[0][:k] for k, a in engine.genotype_stream(bps, raw=True)
         ])
 
-    got = rows(TorchEngine([sample], chunk_size=256, device="cpu"))
-    want = rows(TpuEngine([sample], chunk_size=256))
+    got = rows(TorchEngine([sample], chunk_size=256, device="cpu"),
+               soak.fresh_stream(base, n))
+    want = rows(TpuEngine([jsample], chunk_size=256),
+                itertools.islice(itertools.cycle(jbase), n))
     assert got.shape == (n, teng.ROW_WIDTH)
     _assert_rows_equal(got, want)
 
@@ -149,9 +170,9 @@ def test_profile_chunks_matches_tpu_engine(sample_files):
         for rep in r["reps"]:
             assert rep["chunks"] == -(-N_TILED // r["chunk_size"])
             assert rep["gl_launches"] == 0
-    sample, bps = fixture.load_sample_and_breakpoints(bam, tiled)
+    jsample, jbps = _jax_sample_and_breakpoints(bam, tiled)
     want = profile_chunks.result_rows(
-        TpuEngine([sample], chunk_size=128).genotype_all(bps)
+        TpuEngine([jsample], chunk_size=128).genotype_all(jbps)
     )
     _assert_rows_equal(rows, want)
 
@@ -163,9 +184,10 @@ def test_scaling_curve_identical_over_shards(sample_files):
     assert all(r["identical_to_1dev"] and r["cards"] == 1 for r in rows)
     assert all(r["variants"] == N_TILED and r["chunks"] == 1 for r in rows)
     sample, bps = fixture.load_sample_and_breakpoints(bam, tiled)
+    jsample, jbps = _jax_sample_and_breakpoints(bam, tiled)
     one = TorchEngine([sample], device="cpu").genotype_all(bps)
     assert scaling_curve._formatted(one) == scaling_curve._formatted(
-        TpuEngine([sample]).genotype_all(bps)
+        TpuEngine([jsample]).genotype_all(jbps)
     )
 
 
@@ -224,7 +246,14 @@ def test_gl_bench_twin_matches_jax():
     (res,) = gl_bench.run([n], device="cpu", emit=_quiet)
     assert res["n"] == n and res["int_fields"] == "exact"
     assert res["sq_max_abs_diff_twin"] < 1e-3
+    # the CPU times nothing: every timed key says so, and the wrapper's
+    # time is kernel_call_ms beside the graph-replayed kernel_device_ms
     assert "kernel_ms" not in res
+    assert "kernel_call_ms" in gl_bench.DEVICE_KEYS
+    for key in gl_bench.DEVICE_KEYS:
+        assert res[key] == "not measured (CPU run)", key
+    assert res["bytes"] == n * 118 and res["bound_by"] == "bytes"
+    assert res["bound_ms"] == pytest.approx(n * 118 / 3.35e12 * 1e3)
     counts, is_dup, force_null = gl_bench.gl_inputs(n)
     twin = gl_kernel.genotype_rows_plain(
         torch.tensor(counts), torch.tensor(is_dup.astype(np.uint8)),
