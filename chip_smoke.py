@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of svtyper_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py                # one card: phases 1-12
-    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10
+    python3 chip_smoke.py                # one card: phases 1-13
+    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10, 13
 
-Drives the port's shipped command (``svtyper_tpu_torch.cli.classic``)
-and its tools (``svtyper_tpu_torch.tools``) on the card and checks them
-end to end, in twelve phases; any failure exits non-zero:
+Drives the port's shipped command (``svtyper_tpu_torch.cli.classic``),
+its tools (``svtyper_tpu_torch.tools``) and its full-column device step
+(``svtyper_tpu_torch.parallel``) on the card and checks them end to end,
+in thirteen phases; any failure exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
@@ -54,21 +55,33 @@ end to end, in twelve phases; any failure exits non-zero:
     variants of phase 5's loci, host RSS and reserved device memory
     flat within 10%;
 12. ``tools.dump_chunk_args`` writes the first chunk's native fetch
-    arguments.
+    arguments;
+13. the full-column device step (``evidence/device.py::classify``, the
+    semantic reference of the engine's ``classify_compact``): (a)
+    ``parallel.dryrun.entry()`` on the 64-variant synthetic chunk, every
+    variant called, counts bit-identical to ``classify_compact``'s and
+    int fields equal to the CPU twin's; (b) the first 1,024 records of
+    phase 5's fixture through ``prepare_chunk``: both classifiers'
+    counts, and the GL kernel's rows from them, bit-identical, the int
+    fields equal to ``TorchEngine``'s, and each classifier's device ms
+    per chunk; (c) ``make_sharded_step`` over every card (two shards on
+    ``cuda:0`` when there is one): every field equal to each shard's
+    local result, one GL launch per shard.
 
 The port runs with jax and the JAX package (``svtyper_tpu``) refused,
 and neither may be loaded at the end.
 
-Each phase that drives the CLI or a tool zeroes ``gl_kernel.LAUNCHES``
-just before and reads it just after (phases 7 and 11 read a child
-process's count from the engine's ``gl_launches`` in its
+Each phase that drives the CLI, a tool or the full-column step zeroes
+``gl_kernel.LAUNCHES`` just before and reads it just after (phases 7 and
+11 read a child process's count from the engine's ``gl_launches`` in its
 ``SVT_CLI_STATS``), and fails if the kernel did not run as often as the
-phase's chunks ask; the kernel line reports their sum.
+phase's chunks (phase 13: its steps and shards) ask; the kernel line
+reports their sum.
 
 ``--multi-card`` is the check for a host with several cards: it runs
-only the phases that span cards (6, 7 and 10) and the single-card phase
-5 they are compared with, and prints no kernel line (phase 3 measures
-the kernel).
+only the phases that span cards (6, 7, 10 and 13) and the single-card
+phase 5 they are compared with, and prints no kernel line (phase 3
+measures the kernel).
 
 Prints diagnostics, then the card's name and power limit, one JSON line
 describing each kernel, and last the result line
@@ -103,6 +116,7 @@ SWEEP_SIZES = (512, 1024, 2048, 4096)
 SOAK_N = 200_000
 SOAK_EVERY = 5  # library soak: chunks between memory samples
 SOAK_INTERVAL = 0.5  # CLI soak: seconds between memory samples
+FULL_REPS = 20  # phase 13: classifier calls per CUDA-event window
 
 
 class _RefuseJax:
@@ -530,11 +544,174 @@ def phase_dump(gl_kernel, dump_chunk_args, wgs):
     return launches
 
 
+def device_ms(torch, fn, reps: int):
+    """→ (ms per call between two CUDA events around ``reps``
+    back-to-back calls, ms per call the host took to enqueue them),
+    after one warm-up call. Equal numbers mean the host's dispatch, not
+    the device, sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
+def _on(torch, cols, dev):
+    import numpy as np
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in cols.items()}
+
+
+def _compact_counts(torch, chunk, dens, dev):
+    """``classify_compact`` on ``chunk``'s compact wire, sent and unpacked
+    as the engine does (``pack_wire`` → one uint8 buffer → ``unwire``)."""
+    from svtyper_tpu_torch.evidence.device import classify_compact
+    from svtyper_tpu_torch.evidence.extract import compact_chunk
+    from svtyper_tpu_torch.gt.engine import pack_wire, unwire
+
+    wire, geom = pack_wire(compact_chunk(chunk, min_aligned=20))
+    parts = unwire(torch.from_numpy(wire).to(dev), geom)
+    return lambda: classify_compact(*parts, dens, chunk.n_var,
+                                    dtype=torch.float32)
+
+
+def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
+    """Phase 13: the full-column device step → its GL launches."""
+    import numpy as np
+
+    from svtyper_tpu_torch.evidence.device import classify
+    from svtyper_tpu_torch.evidence.extract import prepare_chunk
+    from svtyper_tpu_torch.gt.engine import INT_FIELDS, TorchEngine, dens_state
+    from svtyper_tpu_torch.parallel import (
+        make_mesh, make_sharded_step, stack_shards,
+    )
+    from svtyper_tpu_torch.parallel.dryrun import entry
+    from svtyper_tpu_torch.parallel.mesh import genotype_step
+    from svtyper_tpu_torch.parallel.synth import make_synthetic_chunk
+    from svtyper_tpu_torch.utils import fixture
+
+    n_int = len(INT_FIELDS)
+    f32 = torch.float32
+
+    # (a) entry() on the card against the compact path and the CPU twin
+    step, args = entry(device=dev)
+    gl_kernel.LAUNCHES = 0
+    got = {k: v.cpu().numpy() for k, v in step(*args).items()}
+    total = launched(gl_kernel, 13, 1)
+    chunk, _ = make_synthetic_chunk(n_var=64, frags_per_var=8)
+    compact = _compact_counts(torch, chunk, args[3], dev)().cpu().numpy()
+    cstep, cargs = entry(device="cpu")
+    twin = {k: v.numpy() for k, v in cstep(*cargs).items()}
+    check(got["gt_idx"].shape == (64,) and not got["null"].any(),
+          "phase 13: entry() left variants uncalled")
+    check(np.array_equal(got["counts"], compact),
+          "phase 13: entry() counts differ from classify_compact's")
+    bad = [k for k in INT_FIELDS if not np.array_equal(got[k], twin[k])]
+    check(not bad, "phase 13: entry() int fields %s differ from the CPU "
+          "twin's" % bad)
+    log("phase 13: (a) entry() on %s: 64/64 variants called, counts "
+        "bit-identical to classify_compact's, int fields equal to the CPU "
+        "twin's; 1 GL launch" % dev)
+
+    # (b) one main-path chunk of phase 5's fixture, both classifiers
+    bam, tiled, lib = wgs[:3]
+    sample, bps = fixture.load_sample_and_breakpoints(bam, tiled, CHUNK,
+                                                      lib_info=lib)
+    chunk = prepare_chunk(sample, bps, min_aligned=20)
+    n_var = chunk.n_var
+    check(n_var == CHUNK, "phase 13: %d variants in the chunk" % n_var)
+    dens = dens_state(sample.dens_matrix(), dev, f32)
+    reads, pairs, variants = (_on(torch, c, dev) for c in (
+        chunk.reads, chunk.pairs, chunk.variants))
+
+    def full():
+        return classify(reads, pairs, variants, dens, n_var, 20, dtype=f32,
+                        rows_sorted=True)
+
+    comp = _compact_counts(torch, chunk, dens, dev)
+    c_full, c_comp = full(), comp()
+    check(torch.equal(c_full, c_comp), "phase 13: full-column counts differ "
+          "from classify_compact's in %d variants"
+          % int((c_full != c_comp).any(dim=1).sum()))
+    flags = [variants[k].to(torch.uint8) for k in ("is_dup", "force_null")]
+    gl_kernel.LAUNCHES = 0
+    rows = gl_kernel.genotype_rows(c_full, *flags)
+    total += launched(gl_kernel, 13, 1)
+    rows_comp = gl_kernel.genotype_rows(c_comp, *flags)
+    check(torch.equal(rows, rows_comp),
+          "phase 13: GL rows of the two classifiers differ")
+    with TorchEngine([sample], device=dev, dtype=f32) as eng:
+        eng_rows = np.concatenate(
+            [a[0][:n] for n, a in eng.genotype_stream(bps, raw=True)])
+    rows = rows.cpu().numpy()
+    check(np.isfinite(rows).all(), "phase 13: non-finite GL rows")
+    bad = (rows[:, :n_int] != eng_rows[:, :n_int]).any(axis=0)
+    check(not bad.any(), "phase 13: int fields differ from TorchEngine's in "
+          "columns %s" % bad.nonzero()[0].tolist())
+    ms = {"classify": [], "classify_compact": []}
+    for name in ("classify", "classify_compact", "classify_compact",
+                 "classify"):
+        fn = full if name == "classify" else comp
+        ms[name].append(device_ms(torch, fn, FULL_REPS))
+    log("phase 13: (b) %d records of phase 5's fixture (%d reads, %d "
+        "pairs): full-column counts and GL rows bit-identical to the "
+        "compact path's, int fields equal to TorchEngine's; ms per chunk "
+        "(%d calls, in turns), CUDA events (host enqueue): classify %s, "
+        "classify_compact %s" % (
+            n_var, int((chunk.reads["var"] < n_var).sum()),
+            int((chunk.pairs["var"] < n_var).sum()), FULL_REPS,
+            " / ".join("%.6f (%.6f)" % t for t in ms["classify"]),
+            " / ".join("%.6f (%.6f)" % t for t in ms["classify_compact"])))
+
+    # (c) the sharded step over every card (two shards on one card)
+    n_vis = torch.cuda.device_count()
+    devices = make_mesh() if n_vis > 1 else make_mesh(devices=[dev] * 2)
+    n_dev = len(devices)
+    per = CHUNK // n_dev
+    parts = [bps[d * per:(d + 1) * per] for d in range(n_dev)]
+    sizes = [prepare_chunk(sample, p, min_aligned=20) for p in parts]
+    r_pad = max(len(c.reads["var"]) for c in sizes)
+    f_pad = max(len(c.pairs["var"]) for c in sizes)
+    shards = [prepare_chunk(sample, p, min_aligned=20, pad_reads=r_pad,
+                            pad_pairs=f_pad) for p in parts]
+    stacked = stack_shards(shards)
+    dens_np = dens_state(sample.dens_matrix(), "cpu", torch.float64).numpy()
+    sharded = make_sharded_step(devices, per, dtype=f32)
+    gl_kernel.LAUNCHES = 0
+    out = sharded(stacked["reads"], stacked["pairs"], stacked["variants"],
+                  np.stack([dens_np] * n_dev))
+    total += launched(gl_kernel, 13, n_dev)
+    for d, (c, d_dev) in enumerate(zip(shards, devices)):
+        local = genotype_step(
+            _on(torch, c.reads, d_dev), _on(torch, c.pairs, d_dev),
+            _on(torch, c.variants, d_dev),
+            torch.as_tensor(dens_np).to(d_dev, f32), per, rows_sorted=True,
+        )
+        bad = [k for k in local
+               if not torch.equal(out[k][d], local[k].cpu())]
+        check(not bad, "phase 13: shard %d on %s: %s differ from its local "
+              "result" % (d, d_dev, bad))
+        check(not out["null"][d].all(), "phase 13: shard %d called nothing"
+              % d)
+    log("phase 13: (c) make_sharded_step over %s: %d shards of %d variants, "
+        "every field equal to each shard's local result; %d GL launches"
+        % (",".join(str(d) for d in devices), n_dev, per, n_dev))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="phases 1, 2, 5-7 and 10 on a host with two or "
-                         "more cards")
+                    help="phases 1, 2, 5-7, 10 and 13 on a host with two "
+                         "or more cards")
     multi_card = ap.parse_args(argv).multi_card
     sys.meta_path.insert(0, _RefuseJax())
     import torch
@@ -578,10 +755,12 @@ def main(argv=None) -> int:
     if not multi_card:
         launches += phase_soak(gl_kernel, soak, WGS_VCF, wgs[0])
         launches += phase_dump(gl_kernel, dump_chunk_args, wgs)
+    launches += phase_full_column(torch, gl_kernel, wgs)
     check("jax" not in sys.modules, "jax was imported")
     check("svtyper_tpu" not in sys.modules, "svtyper_tpu was imported")
     if multi_card:
-        log("multi-card: phases 5-7 and 10 ok on %d cards, %d GL launches"
+        log("multi-card: phases 5-7, 10 and 13 ok on %d cards, %d GL "
+            "launches"
             % (torch.cuda.device_count(), launches))
         log(smi)
         log(json.dumps(result_line(torch)))

@@ -7,7 +7,8 @@
 The PyTorch port imports nothing of the JAX package, so it carries its
 own copy of every jax-free module it needs (BAM/CRAM decoding, VCF I/O,
 library statistics, breakpoints, the compact-wire builder, the float64
-oracle, output formatting, checkpoints, the simulator). Each file in
+oracle, output formatting, checkpoints, the simulator, the synthetic
+chunk). Each file in
 ``COPIES`` is copied to the same relative path with one change: its
 imports of ``svtyper_tpu`` name ``svtyper_tpu_torch`` instead. Docstrings,
 comments and string literals stay as they are, so the output stays
@@ -64,6 +65,7 @@ COPIES = (
     "cli/checkpoint.py",
     "cli/write_alignment.py",
     "simulate.py",
+    "parallel/synth.py",
 )
 
 # an import statement's module name: "from svtyper_tpu.x import" and

@@ -1,8 +1,11 @@
-"""Multi-device dryrun: ``TorchEngine`` sharded over ``n_devices``.
+"""The full-column device step and the multi-device dryrun: the
+counterparts of ``__graft_entry__.py``'s two entry points.
 
-Counterpart of ``__graft_entry__.py::dryrun_multichip``: the production
-engine genotypes a tiny simulated BAM + VCF (six DELs) with each chunk's
-variants split into one contiguous shard per device.
+``entry()`` returns the full-column step — float32 ``classify`` then the
+GL stage — with the 64-variant synthetic chunk as example inputs.
+``dryrun_multichip(n)`` runs the production engine (``TorchEngine``)
+over ``n`` devices: a tiny simulated BAM + VCF (six DELs) with each
+chunk's variants split into one contiguous shard per device.
 
     python -m svtyper_tpu_torch.parallel.dryrun 8 cpu
 """
@@ -13,6 +16,44 @@ import io
 import os
 import sys
 import tempfile
+
+
+def entry(device=None):
+    """→ ``(step, example_args)``: ``step(*example_args)`` runs float32
+    ``classify`` on the synthetic chunk (64 DEL variants, 8 fragments
+    each) and the GL stage, and returns ``genotype_batch``'s dict.
+
+    The device defaults to the current CUDA card, where the GL stage is
+    the hand-written kernel; ``device="cpu"`` runs its plain twin. There
+    is no fallback: without CUDA the default raises. The JAX step's fifth
+    argument, the float32 log-choose table, has no counterpart: the
+    kernel takes log10 C(n,k) from lgamma."""
+    import numpy as np
+    import torch
+
+    from svtyper_tpu_torch.gt.engine import _resolve_device
+    from svtyper_tpu_torch.parallel.mesh import genotype_step
+    from svtyper_tpu_torch.parallel.synth import make_synthetic_chunk
+
+    dev, dtype = _resolve_device(device or "cuda", torch.float32)
+    chunk, dens = make_synthetic_chunk(n_var=64, frags_per_var=8)
+    n_var = chunk.n_var
+
+    def step(reads, pairs, variants, dens):
+        return genotype_step(reads, pairs, variants, dens, n_var,
+                             min_aligned=20)
+
+    def put(cols):
+        return {k: torch.as_tensor(np.asarray(v)).to(dev)
+                for k, v in cols.items()}
+
+    example_args = (
+        put(chunk.reads),
+        put(chunk.pairs),
+        put(chunk.variants),
+        torch.as_tensor(dens, dtype=dtype).to(dev),
+    )
+    return step, example_args
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:

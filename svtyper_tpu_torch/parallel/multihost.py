@@ -1,4 +1,5 @@
-"""Multi-host orchestration: contiguous variant sharding + the row gather.
+"""Multi-host orchestration: contiguous variant sharding, the row gather
+and the ordered merge.
 
 Counterpart of ``svtyper_tpu.parallel.multihost`` on
 ``torch.distributed``: one process per host, host *i* genotypes the
@@ -16,7 +17,7 @@ buffers), and gloo, unlike NCCL, lets two ranks share one card.
 from __future__ import annotations
 
 from datetime import timedelta
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,29 @@ def shard_slices(n: int, n_shards: int) -> List[Tuple[int, int]]:
         out.append((lo, hi))
         lo = hi
     return out
+
+
+def merge_ordered(
+    rows_per_shard: Sequence[np.ndarray], slices: Sequence[Tuple[int, int]]
+) -> np.ndarray:
+    """Reassemble result rows into input variant order.
+
+    Each shard's rows are already in its slice's order; slices are
+    contiguous and disjoint, so a plain concatenation in shard order is
+    the global order — asserted here rather than assumed.
+    """
+    total = slices[-1][1] if slices else 0
+    lo_seen = 0
+    parts = []
+    for rows, (lo, hi) in zip(rows_per_shard, slices):
+        assert lo == lo_seen, "non-contiguous shard slices"
+        assert len(rows) == hi - lo, "shard row count mismatch"
+        parts.append(rows)
+        lo_seen = hi
+    assert lo_seen == total
+    if not parts:
+        return np.zeros((0,))
+    return np.concatenate(parts, axis=0)
 
 
 def initialize_from_env(

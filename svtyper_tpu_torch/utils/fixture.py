@@ -81,18 +81,25 @@ def decoder_name() -> str:
 
 
 def load_sample_and_breakpoints(
-    bam: str, vcf: str, n: Optional[int] = None, num_samp: int = 200_000
+    bam: str, vcf: str, n: Optional[int] = None, num_samp: int = 200_000,
+    lib_info: Optional[str] = None,
 ):
     """→ (Sample, the first ``n`` records' breakpoints, every record's
-    when ``n`` is None) for driving ``TorchEngine`` directly. The default
-    ``num_samp`` is the JAX scripts' library sample."""
+    when ``n`` is None) for driving ``TorchEngine`` directly. The library
+    statistics come from the CLI's ``-l`` file ``lib_info`` when given,
+    else from a scan of ``num_samp`` reads (the default is the JAX
+    scripts' library sample)."""
     from svtyper_tpu_torch.bamio.bam import open_bam
     from svtyper_tpu_torch.breakpoints import resolve_breakpoint
     from svtyper_tpu_torch.stats import Sample
     from svtyper_tpu_torch.vcfio.model import Variant, Vcf
     from svtyper_tpu_torch.vcfio.reader import read_vcf_lines
 
-    sample = Sample.from_bam(open_bam(bam), num_samp=num_samp)
+    if lib_info is not None:
+        sample = Sample.from_lib_info(open_bam(bam),
+                                      Sample.load_lib_info(lib_info))
+    else:
+        sample = Sample.from_bam(open_bam(bam), num_samp=num_samp)
     v = Vcf()
     with open(vcf) as fh:
         header, body = read_vcf_lines(fh)

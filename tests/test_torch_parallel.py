@@ -1,11 +1,18 @@
-"""The port's multi-device engine on the CPU: ``TorchEngine`` sharded
+"""The port's multi-device paths on the CPU: ``TorchEngine`` sharded
 over repeated CPU devices against one device and against the JAX
-``TpuEngine`` on conftest's 8 virtual devices, plus ``shard_slices``
-against the JAX function and the dryrun.
+``TpuEngine`` on conftest's 8 virtual devices; the full-column
+``make_sharded_step`` against the JAX one and against per-shard
+recomputation; ``shard_slices`` and ``merge_ordered`` against the JAX
+functions; ``make_mesh``'s refusal to fall back to the CPU; ``entry()``
+against ``__graft_entry__.entry``; and the dryrun.
 
 float64: rendered VCF lines byte-identical (8 shards vs 1, and vs JAX);
+the sharded step's ``gt_idx`` exact and ``gl`` within rtol=1e-12 of
+JAX's, as ``tests/test_parallel.py`` holds JAX's to its local result.
 float32 (the CUDA kernel's twin): the 14 integer fields identical
-between 8 shards and 1.
+between 8 shards and 1; ``entry()``'s counts exact against JAX's, its
+GL/SQ/AB at output-format precision (the twin's lgamma against JAX's
+log-choose table).
 """
 
 import io
@@ -21,12 +28,26 @@ from svtyper_tpu import output as joutput
 from svtyper_tpu import stats as jstats
 from svtyper_tpu import vcfio as jvcfio
 from svtyper_tpu.gt import TpuEngine
+from svtyper_tpu.ops.gl import log_choose_table as jax_log_choose_table
+from svtyper_tpu.parallel import make_mesh as jax_make_mesh
+from svtyper_tpu.parallel import make_sharded_step as jax_make_sharded_step
 from svtyper_tpu.parallel import multihost as jmh
 from svtyper_tpu_torch import bamio, breakpoints, output, stats, vcfio
 from svtyper_tpu_torch.gt import engine as teng
 from svtyper_tpu_torch.gt.engine import TorchEngine
+from svtyper_tpu_torch.ops import gl_kernel
+from svtyper_tpu_torch.parallel import mesh as tmesh
 from svtyper_tpu_torch.parallel import multihost as tmh
-from svtyper_tpu_torch.parallel.dryrun import dryrun_multichip
+from svtyper_tpu_torch.parallel import (
+    make_mesh,
+    make_sharded_step,
+    merge_ordered,
+    shard_slices,
+    stack_shards,
+)
+from svtyper_tpu_torch.parallel.dryrun import dryrun_multichip, entry
+from svtyper_tpu_torch.parallel.synth import make_synthetic_chunk
+from svtyper_tpu_torch.utils.parity import assert_format_parity
 from svtyper_tpu_torch.simulate import (
     Event,
     SimConfig,
@@ -186,3 +207,169 @@ def test_two_samples_sharded_match_single_device(del13):
 def test_dryrun_multichip(n_devices, capsys):
     dryrun_multichip(n_devices, "cpu")
     assert "%d x cpu ok" % n_devices in capsys.readouterr().out
+
+
+def test_merge_ordered_matches_jax():
+    sl = shard_slices(10, 3)
+    rows = [np.arange(lo, hi) for lo, hi in sl]
+    merged = merge_ordered(rows, sl)
+    assert merged.tolist() == list(range(10))
+    np.testing.assert_array_equal(merged, jmh.merge_ordered(rows, sl))
+    wide = [np.stack([r, -r], axis=1) for r in rows]
+    np.testing.assert_array_equal(merge_ordered(wide, sl),
+                                  jmh.merge_ordered(wide, sl))
+    assert merge_ordered([], []).shape == jmh.merge_ordered([], []).shape
+    for bad_rows, bad_sl in (([rows[1], rows[0], rows[2]], sl),
+                             ([rows[0][:-1]] + rows[1:], sl)):
+        for fn in (merge_ordered, jmh.merge_ordered):
+            with pytest.raises(AssertionError):
+                fn(bad_rows, bad_sl)
+
+
+def test_make_mesh_never_falls_back_to_the_cpu(monkeypatch):
+    assert make_mesh(devices=CPU8) == [torch.device("cpu")] * 8
+    assert make_mesh(4, devices=CPU8) == [torch.device("cpu")] * 4
+    with pytest.raises(ValueError, match="need 9 devices, have 8"):
+        make_mesh(9, devices=CPU8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_mesh(2)
+    # one card where two are asked for: an error, not a CPU mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert make_mesh() == [torch.device("cuda", 0)]
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        make_mesh(2)
+
+
+def _shards(n_dev, n_var=8):
+    """tests/test_parallel.py's shards: equal pad sizes, 2-4 fragments
+    per variant."""
+    chunks = [make_synthetic_chunk(n_var=n_var, frags_per_var=2 + i % 3)
+              for i in range(n_dev)]
+    return [c for c, _ in chunks], chunks[0][1]
+
+
+def _local(chunk, dens, dtype):
+    """One shard recomputed alone, rows taken as unsorted."""
+    return tmesh.genotype_step(
+        {k: torch.as_tensor(v) for k, v in chunk.reads.items()},
+        {k: torch.as_tensor(v) for k, v in chunk.pairs.items()},
+        {k: torch.as_tensor(np.asarray(v)) for k, v in chunk.variants.items()},
+        torch.as_tensor(dens, dtype=dtype), chunk.n_var,
+    )
+
+
+def test_sharded_step_matches_jax_and_local():
+    n_dev, n_var = 8, 8
+    shards, dens = _shards(n_dev, n_var)
+    stacked = stack_shards(shards)
+    dens_stack = np.stack([dens] * n_dev)
+    step = make_sharded_step(make_mesh(devices=CPU8), n_var)
+    out = step(stacked["reads"], stacked["pairs"], stacked["variants"],
+               dens_stack)
+    assert out["gt_idx"].shape == (n_dev, n_var)
+    assert out["gl"].dtype == torch.float64
+
+    assert len(jax.devices()) == 8  # conftest virtual mesh
+    jstep = jax_make_sharded_step(jax_make_mesh(n_dev), n_var,
+                                  dtype=jax.numpy.float64)
+    want = jax.device_get(jstep(
+        stacked["reads"], stacked["pairs"], stacked["variants"],
+        jax.numpy.asarray(dens_stack),
+        jax.numpy.asarray(jax_log_choose_table(1 << 12, use_f64=True)),
+    ))
+    assert set(out) == set(want)
+    np.testing.assert_array_equal(out["gt_idx"].numpy(), want["gt_idx"])
+    np.testing.assert_allclose(out["gl"].numpy(), want["gl"], rtol=1e-12)
+    np.testing.assert_array_equal(out["counts"].numpy(), want["counts"])
+
+    for d, chunk in enumerate(shards):
+        local = _local(chunk, dens, torch.float64)
+        for k in local:
+            np.testing.assert_array_equal(out[k][d].numpy(),
+                                          local[k].numpy(), err_msg=k)
+
+
+def test_sharded_step_f32_int_fields_match_the_twin_per_shard():
+    n_dev, n_var = 4, 8
+    shards, dens = _shards(n_dev, n_var)
+    stacked = stack_shards(shards)
+    step = make_sharded_step(["cpu"] * n_dev, n_var, dtype=torch.float32)
+    before = gl_kernel.LAUNCHES
+    out = step(stacked["reads"], stacked["pairs"], stacked["variants"],
+               np.stack([dens] * n_dev))
+    assert gl_kernel.LAUNCHES == before  # the CPU runs the twin
+    assert out["counts"].dtype == torch.float32
+    for d, chunk in enumerate(shards):
+        local = _local(chunk, dens, torch.float32)
+        for k in teng.INT_FIELDS + ("counts",):
+            np.testing.assert_array_equal(out[k][d].numpy(),
+                                          local[k].numpy(), err_msg=k)
+
+
+def test_sharded_step_refuses_what_it_cannot_run(monkeypatch):
+    with pytest.raises(ValueError, match="no devices"):
+        make_sharded_step([], 8)
+    shards, dens = _shards(2)
+    stacked = stack_shards(shards)
+    step = make_sharded_step(CPU8[:3], 8)
+    with pytest.raises(ValueError, match="leading axis"):
+        step(stacked["reads"], stacked["pairs"], stacked["variants"],
+             np.stack([dens] * 2))
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_sharded_step(["cuda:0"], 8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="float32"):
+        make_sharded_step(["cuda:0"], 8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="one kind"):
+        make_sharded_step(["cuda:0", "cpu"], 8, dtype=torch.float32)
+
+
+def test_entry_matches_graft_entry():
+    import __graft_entry__ as g
+
+    fn, args = g.entry()
+    want = jax.device_get(jax.jit(fn)(*args))
+    step, targs = entry(device="cpu")
+    assert all(t.device.type == "cpu" for d in targs[:3] for t in d.values())
+    before = gl_kernel.LAUNCHES
+    got = {k: v.numpy() for k, v in step(*targs).items()}
+    assert gl_kernel.LAUNCHES == before
+    assert set(got) == set(want)
+    assert got["gt_idx"].shape == (64,) and not got["null"].any()
+    np.testing.assert_array_equal(got["counts"], want["counts"])
+    for k in ("gt_idx", "qr", "qa", "dp", "ro", "ao", "rs", "as_", "asc",
+              "rp", "ap", "ab_valid"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    ints = np.stack([got[k].astype(np.int64) for k in teng.INT_FIELDS])
+    flts = np.concatenate([got["gl"].T, got["sq"][None], got["ab"][None],
+                           got["counts"].T])
+    assert_format_parity(want, ints, flts, 64, min_checked=64)
+
+
+def test_entry_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        entry()
+
+
+@pytest.mark.cuda
+def test_entry_on_card():
+    """entry() on the card: every variant called, counts and int fields
+    equal to the twin's on the CPU, one GL kernel launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    step, args = entry()
+    assert args[3].device.type == "cuda"
+    before = gl_kernel.LAUNCHES
+    got = {k: v.cpu().numpy() for k, v in step(*args).items()}
+    assert gl_kernel.LAUNCHES == before + 1
+    cstep, cargs = entry(device="cpu")
+    want = {k: v.numpy() for k, v in cstep(*cargs).items()}
+    assert not got["null"].any()
+    np.testing.assert_array_equal(got["counts"], want["counts"])
+    for k in teng.INT_FIELDS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
