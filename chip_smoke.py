@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of svtyper_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py                # one card: phases 1-13
-    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10, 13
+    python3 chip_smoke.py                # one card: phases 1-15
+    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10, 13, 14
 
 Drives the port's shipped command (``svtyper_tpu_torch.cli.classic``),
-its tools (``svtyper_tpu_torch.tools``) and its full-column device step
-(``svtyper_tpu_torch.parallel``) on the card and checks them end to end,
-in thirteen phases; any failure exits non-zero:
+its tools (``svtyper_tpu_torch.tools``), its full-column device step
+(``svtyper_tpu_torch.parallel``) and its console scripts on the card and
+checks them end to end, in fifteen phases; any failure exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
@@ -66,7 +66,23 @@ in thirteen phases; any failure exits non-zero:
     fields equal to ``TorchEngine``'s, and each classifier's device ms
     per chunk; (c) ``make_sharded_step`` over every card (two shards on
     ``cuda:0`` when there is one): every field equal to each shard's
-    local result, one GL launch per shard.
+    local result, one GL launch per shard;
+14. ``tools.profile_prep``: the engine's host prep alone (no device
+    step, so no GL launch) at chunk 1024 and 4096 over 1 and 2 shards
+    (two on ``cuda:0`` with one card, every card under ``--multi-card``),
+    each chunk's wall split into preamble, native fetch, export and the
+    rest, with the native counters and the usable cores; first on phase
+    5's tiled records, then on the tools' 1,600-event fixture, whose loci
+    are distinct (simulated in a child process while phases 3-13 run).
+    The chunk count must be ceil(records / size), the reads and pairs
+    those of an unwrapped ``TorchEngine._prepare`` over the same chunks,
+    and the tool's wrappers gone after it;
+15. the remaining entry points: (a) ``tools.reference_parity --mock``,
+    every lane passing, one GL launch per chunk of its float32 lanes;
+    (b) the ``svtyper-torch`` and ``svtyper-torch-sso`` console scripts
+    resolved from ``setup.py`` under the jax refusal, and
+    ``svtyper-torch`` on the golden example byte-identical to phase 4;
+    (c) ``tools.make_example_data`` byte-identical to ``data/``.
 
 The port runs with jax and the JAX package (``svtyper_tpu``) refused,
 and neither may be loaded at the end.
@@ -75,13 +91,13 @@ Each phase that drives the CLI, a tool or the full-column step zeroes
 ``gl_kernel.LAUNCHES`` just before and reads it just after (phases 7 and
 11 read a child process's count from the engine's ``gl_launches`` in its
 ``SVT_CLI_STATS``), and fails if the kernel did not run as often as the
-phase's chunks (phase 13: its steps and shards) ask; the kernel line
-reports their sum.
+phase's chunks (phase 13: its steps and shards; phase 14: never) ask;
+the kernel line reports their sum.
 
 ``--multi-card`` is the check for a host with several cards: it runs
-only the phases that span cards (6, 7, 10 and 13) and the single-card
-phase 5 they are compared with, and prints no kernel line (phase 3
-measures the kernel).
+only the phases that span cards (6, 7, 10, 13 and 14) and the
+single-card phase 5 they are compared with, and prints no kernel line
+(phase 3 measures the kernel).
 
 Prints diagnostics, then the card's name and power limit, one JSON line
 describing each kernel, and last the result line
@@ -92,6 +108,8 @@ result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import ast
+import importlib
 import json
 import math
 import os
@@ -117,6 +135,9 @@ SOAK_N = 200_000
 SOAK_EVERY = 5  # library soak: chunks between memory samples
 SOAK_INTERVAL = 0.5  # CLI soak: seconds between memory samples
 FULL_REPS = 20  # phase 13: classifier calls per CUDA-event window
+PREP_SIZES = (1024, 4096)  # phase 14's chunk sizes
+PREP_EVENTS = 1600  # phase 14's second fixture: the tools' default, untiled
+PREP_SIM_TIMEOUT_S = 900
 
 
 class _RefuseJax:
@@ -707,11 +728,182 @@ def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
     return total
 
 
+def start_prep_fixture():
+    """Simulates phase 14's second fixture (``tools.common.default_fixture``
+    at ``PREP_EVENTS``) in a child process, under the jax refusal, while
+    phases 3-13 run → (the process, its stderr path)."""
+    err = os.path.join(WORK, "prep_fixture.err")
+    code = ("import sys; import chip_smoke; "
+            "sys.meta_path.insert(0, chip_smoke._RefuseJax()); "
+            "from svtyper_tpu_torch.tools import common; "
+            "common.default_fixture(%d)" % PREP_EVENTS)
+    with open(err, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                env=dict(os.environ, PYTHONPATH=ROOT),
+                                stdout=subprocess.DEVNULL, stderr=fh)
+    return proc, err
+
+
+def wait_prep_fixture(common, sim):
+    """→ the fixture's (bam, vcf) once the child has written it."""
+    proc, err = sim
+    t0 = time.time()
+    try:
+        rc = proc.wait(timeout=PREP_SIM_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        with open(err) as fh:
+            check(False, "phase 14: simulating %d events: exit %s\n%s"
+                  % (PREP_EVENTS, rc, fh.read()[-3000:]))
+    log("phase 14: the %d-event fixture was ready %.1f s after phase 13"
+        % (PREP_EVENTS, time.time() - t0))
+    return common.default_fixture(PREP_EVENTS)
+
+
+def _prep_line(name, r):
+    med, p90, nat = r["median"], r["p90"], r["native"]
+    return (
+        "phase 14: %s, chunk %d x %d shard(s) on %d card(s): %d chunks, "
+        "prep %.1f variants/s (%.6f s); per chunk ms, median (p90): wall "
+        "%.3f (%.3f), preamble %.3f (%.3f), fetch %.3f (%.3f), export %.3f "
+        "(%.3f), other %.3f (%.3f); native: inflate %.6f s wall, %.6f s "
+        "CPU, workers %.6f s, %d blocks, %d cache hits, %d bytes "
+        "inflated; %d reads, %d pairs; %d usable cores" % (
+            name, r["chunk_size"], r["shards"], r["cards"], r["chunks"],
+            r["prep_variants_per_s"], r["wall_s"], med["wall_ms"],
+            p90["wall_ms"], med["preamble_ms"], p90["preamble_ms"],
+            med["fetch_ms"], p90["fetch_ms"], med["export_ms"],
+            p90["export_ms"], med["other_ms"], p90["other_ms"],
+            nat["inflate_s"], nat["inflate_cpu_s"], nat["worker_s"],
+            nat["blocks"], nat["cache_hits"], nat["inflate_bytes"],
+            r["reads"], r["pairs"], r["usable_cores"]))
+
+
+def phase_prep(torch, gl_kernel, common, profile_prep, wgs, sim):
+    """Phase 14: the engine's host prep per chunk, split, on phase 5's
+    tiled fixture and on the tools' untiled one. Runs no device step."""
+    from svtyper_tpu_torch.evidence import extract
+    from svtyper_tpu_torch.gt.engine import TorchEngine
+    from svtyper_tpu_torch.tools.scaling_curve import device_lists
+    from svtyper_tpu_torch.utils import fixture
+
+    n_vis = torch.cuda.device_count()
+    shards = (1, 2) if n_vis == 1 else (1, n_vis)
+    orig = (extract._chunk_preamble, extract._pack_variant_tables)
+    gl_kernel.LAUNCHES = 0
+    fixtures = [("wgs30 tiled to %d records" % N_RECORDS, wgs[0], wgs[1])]
+    fixtures.append(("%d distinct events" % PREP_EVENTS,)
+                    + wait_prep_fixture(common, sim))
+    for name, bam, vcf in fixtures:
+        results, prof = profile_prep.run(
+            bam, vcf, sizes=PREP_SIZES, shards=shards, device="cuda",
+            emit=lambda obj: None)
+        check((extract._chunk_preamble, extract._pack_variant_tables)
+              == orig, "phase 14: a prep wrapper was left in place")
+        path = os.path.join(WORK, "profile_prep_%s.txt" % name.split()[0])
+        with open(path, "w") as fh:
+            fh.write(prof)
+        sample, bps = fixture.load_sample_and_breakpoints(bam, vcf)
+        for r in results:
+            n_chunks = -(-len(bps) // r["chunk_size"])
+            check(r["chunks"] == n_chunks, "phase 14: %d chunks of %d for "
+                  "%d records" % (r["chunks"], r["chunk_size"], len(bps)))
+            (_, devices), = device_lists("cuda", [r["shards"]])
+            engine = TorchEngine([sample], chunk_size=r["chunk_size"],
+                                 devices=devices)
+            for chunk in profile_prep.chunks_of(bps, r["chunk_size"]):
+                engine._prepare(chunk)
+            check((engine.stats["reads"], engine.stats["pairs"])
+                  == (r["reads"], r["pairs"]),
+                  "phase 14: %s reads/pairs %d/%d, unwrapped %d/%d"
+                  % (name, r["reads"], r["pairs"], engine.stats["reads"],
+                     engine.stats["pairs"]))
+            log(_prep_line(name, r))
+        log("phase 14: %s: reads and pairs equal an unwrapped "
+            "TorchEngine._prepare's, wrappers removed; cProfile of 3 "
+            "passes in %s, top:\n%s"
+            % (name, path, "\n".join(prof.splitlines()[:16])))
+    check(gl_kernel.LAUNCHES == 0, "phase 14: the GL kernel ran %d times "
+          "during host prep alone" % gl_kernel.LAUNCHES)
+    log("phase 14: no GL kernel launch (host prep alone)")
+
+
+def console_scripts(setup_py):
+    """setup.py's ``console_scripts`` entry points → {name: target}."""
+    with open(setup_py) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict):
+            for k, v in zip(node.keys, node.values):
+                if isinstance(k, ast.Constant) and k.value == "console_scripts":
+                    return dict(e.split("=", 1) for e in ast.literal_eval(v))
+    return {}
+
+
+def resolve(target):
+    module, attr = target.split(":")
+    return getattr(importlib.import_module(module), attr)
+
+
+def phase_entry_points(gl_kernel, reference_parity, make_example_data,
+                       golden_out):
+    """Phase 15: the remaining entry points on the card → its GL
+    launches (the mock parity's float32 lanes and the console script)."""
+    # (a) the reference-parity harness against the mock checkout
+    gl_kernel.LAUNCHES = 0
+    res = reference_parity.run(workdir=os.path.join(WORK, "parity"),
+                               device="cuda", mock=True,
+                               emit=lambda obj: None)
+    card = [l for l in res["lanes"] if l["flavour"] == "cuda"]
+    check(res["ok"] and len(card) == 3,
+          "phase 15: mock parity lanes %s" % res["lanes"])
+    total = launched(gl_kernel, 15, sum(l["chunks"] for l in card))
+    log("phase 15: (a) reference_parity --mock: %d lanes pass (%s); the "
+        "float32 lanes ran %d chunks, %d GL launches" % (
+            len(res["lanes"]), ", ".join(
+                "%s/%s" % (l["lane"], l["flavour"]) for l in res["lanes"]),
+            sum(l["chunks"] for l in card), total))
+
+    # (b) the console scripts, resolved from setup.py under the jax refusal
+    scripts = console_scripts(os.path.join(ROOT, "setup.py"))
+    mains = {name: resolve(scripts[name])
+             for name in ("svtyper-torch", "svtyper-torch-sso")}
+    out = os.path.join(WORK, "example_console.vcf")
+    data = os.path.join(ROOT, "data")
+    gl_kernel.LAUNCHES = 0
+    rc = mains["svtyper-torch"](
+        ["-i", os.path.join(data, "example.vcf"),
+         "-B", os.path.join(data, "example.sim.sorted.bam"), "-n", "60000",
+         "-o", out])
+    check(rc == 0, "phase 15: svtyper-torch exit code %s" % rc)
+    total += launched(gl_kernel, 15, 1)
+    check(read_bytes(out) == read_bytes(golden_out),
+          "phase 15: svtyper-torch's output differs from phase 4's")
+    log("phase 15: (b) console scripts %s resolved with jax refused; "
+        "svtyper-torch on the golden example byte-identical to phase 4, "
+        "1 GL launch" % ", ".join(
+            "%s=%s" % (k, scripts[k]) for k in sorted(mains)))
+
+    # (c) the example data, regenerated
+    t0 = time.time()
+    bam, vcf = make_example_data.make(os.path.join(WORK, "example"))
+    for name in (bam, bam + ".bai", vcf):
+        check(read_bytes(name) == read_bytes(
+            os.path.join(data, os.path.basename(name))),
+            "phase 15: %s differs from data/'s" % os.path.basename(name))
+    log("phase 15: (c) make_example_data wrote the BAM, BAI and VCF "
+        "byte-identical to data/ in %.1f s" % (time.time() - t0))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="phases 1, 2, 5-7, 10 and 13 on a host with two "
-                         "or more cards")
+                    help="phases 1, 2, 5-7, 10, 13 and 14 on a host with "
+                         "two or more cards")
     multi_card = ap.parse_args(argv).multi_card
     sys.meta_path.insert(0, _RefuseJax())
     import torch
@@ -728,8 +920,8 @@ def main(argv=None) -> int:
     from svtyper_tpu_torch.cli import classic
     from svtyper_tpu_torch.ops import _build, gl_kernel
     from svtyper_tpu_torch.tools import (
-        common, dump_chunk_args, gl_bench, profile_chunks, scaling_curve,
-        soak,
+        common, dump_chunk_args, gl_bench, make_example_data, profile_chunks,
+        profile_prep, reference_parity, scaling_curve, soak,
     )
     from svtyper_tpu_torch.utils import fixture, parity
 
@@ -741,25 +933,34 @@ def main(argv=None) -> int:
         % (smi, torch.__version__, torch.version.cuda,
            torch.cuda.device_count()))
     phase_build(_build, native)
-
-    if not multi_card:
-        max_err, times = phase_kernel(torch, gl_kernel, parity, gl_bench)
-        golden_out = phase_golden(classic, parity)
-    wgs, launches = phase_slice(torch, classic, gl_kernel, fixture)
-    launches += phase_multidevice(torch, classic, gl_kernel, wgs)
-    launches += phase_multihost(torch, wgs)
-    if not multi_card:
-        launches += phase_profile(classic, gl_kernel, golden_out)
-        launches += phase_chunk_sweep(gl_kernel, profile_chunks, wgs)
-    launches += phase_scaling(torch, gl_kernel, scaling_curve, wgs)
-    if not multi_card:
-        launches += phase_soak(gl_kernel, soak, WGS_VCF, wgs[0])
-        launches += phase_dump(gl_kernel, dump_chunk_args, wgs)
-    launches += phase_full_column(torch, gl_kernel, wgs)
+    sim = start_prep_fixture()
+    try:
+        if not multi_card:
+            max_err, times = phase_kernel(torch, gl_kernel, parity, gl_bench)
+            golden_out = phase_golden(classic, parity)
+        wgs, launches = phase_slice(torch, classic, gl_kernel, fixture)
+        launches += phase_multidevice(torch, classic, gl_kernel, wgs)
+        launches += phase_multihost(torch, wgs)
+        if not multi_card:
+            launches += phase_profile(classic, gl_kernel, golden_out)
+            launches += phase_chunk_sweep(gl_kernel, profile_chunks, wgs)
+        launches += phase_scaling(torch, gl_kernel, scaling_curve, wgs)
+        if not multi_card:
+            launches += phase_soak(gl_kernel, soak, WGS_VCF, wgs[0])
+            launches += phase_dump(gl_kernel, dump_chunk_args, wgs)
+        launches += phase_full_column(torch, gl_kernel, wgs)
+        phase_prep(torch, gl_kernel, common, profile_prep, wgs, sim)
+        if not multi_card:
+            launches += phase_entry_points(gl_kernel, reference_parity,
+                                           make_example_data, golden_out)
+    finally:
+        if sim[0].poll() is None:
+            sim[0].kill()
+            sim[0].wait()
     check("jax" not in sys.modules, "jax was imported")
     check("svtyper_tpu" not in sys.modules, "svtyper_tpu was imported")
     if multi_card:
-        log("multi-card: phases 5-7, 10 and 13 ok on %d cards, %d GL "
+        log("multi-card: phases 5-7, 10, 13 and 14 ok on %d cards, %d GL "
             "launches"
             % (torch.cuda.device_count(), launches))
         log(smi)

@@ -30,6 +30,7 @@ setup(
         "svtyper_tpu.bamio": ["_native/*.cpp", "_native/Makefile"],
         "svtyper_tpu_torch": ["csrc/*.cu"],
         "svtyper_tpu_torch.bamio": ["_native/*.cpp", "_native/Makefile"],
+        "svtyper_tpu_torch.tools": ["native_profile/*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
@@ -40,6 +41,10 @@ setup(
         "console_scripts": [
             "svtyper=svtyper_tpu.cli.classic:main",
             "svtyper-sso=svtyper_tpu.cli.sso:main",
+            # the PyTorch/CUDA port; it needs no jax, so a machine
+            # without jax installs it with `pip install --no-deps -e .`
+            "svtyper-torch=svtyper_tpu_torch.cli.classic:main",
+            "svtyper-torch-sso=svtyper_tpu_torch.cli.sso:main",
         ]
     },
 )

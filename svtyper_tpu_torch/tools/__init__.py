@@ -13,10 +13,22 @@ a plain function that tests and ``chip_smoke.py`` call:
                        flat-memory check (``scripts/soak_1m.py``);
 - ``dump_chunk_args``  one chunk's ``svt_fetch_chunk`` arguments for the
                        native replay harness
-                       (``scripts/native_profile/dump_chunk_args.py``).
+                       (``scripts/native_profile/dump_chunk_args.py``;
+                       the harness is ``native_profile/replay_harness.cpp``);
+- ``profile_prep``     the engine's host prep per chunk, split into
+                       preamble, native fetch, export and the rest, plus
+                       a cProfile (``scripts/profile_prep.py``);
+- ``reference_parity`` the output contract against a hall-lab/svtyper
+                       checkout, or a mock one
+                       (``scripts/run_reference_parity.sh``), with its
+                       diff ``parity_diff`` (``scripts/parity_diff.py``);
+- ``make_example_data`` the ``data/`` example BAM and VCF
+                       (``scripts/make_example_data.py``).
 
-With no ``device`` a tool runs on CUDA and exits non-zero where there is
-none; the CPU runs only when a caller passes ``device="cpu"``.
+With no ``device`` a tool that drives the engine runs on CUDA and exits
+non-zero where there is none; the CPU runs only when a caller passes
+``device="cpu"``. ``parity_diff`` and ``make_example_data`` touch no
+device.
 
 ``RefuseJax`` lives here, free of imports, so that a child process can
 install it before it imports anything of the port.

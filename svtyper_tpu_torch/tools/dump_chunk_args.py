@@ -13,7 +13,7 @@ in the same directory (the JAX script writes them to
     python -m svtyper_tpu_torch.tools.dump_chunk_args <bam> <vcf> /tmp/chunkbin
     cp /tmp/chunkbin/chunk_names.txt /tmp/
     cd svtyper_tpu_torch/bamio/_native && \\
-        g++ -O2 -pg -std=c++17 ../../../scripts/native_profile/replay_harness.cpp \\
+        g++ -O2 -pg -std=c++17 ../../tools/native_profile/replay_harness.cpp \\
         bamcore.cpp -o /tmp/replay -lz -pthread
     /tmp/replay <bam> 30 1 && gprof -b /tmp/replay gmon.out | head -30
 
