@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of svtyper_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py                # one card: phases 1-15
+    python3 chip_smoke.py                # one card: phases 1-16
     python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10, 13, 14
 
 Drives the port's shipped command (``svtyper_tpu_torch.cli.classic``),
 its tools (``svtyper_tpu_torch.tools``), its full-column device step
 (``svtyper_tpu_torch.parallel``) and its console scripts on the card and
-checks them end to end, in fifteen phases; any failure exits non-zero:
+checks them end to end, in sixteen phases; any failure exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
@@ -82,7 +82,17 @@ checks them end to end, in fifteen phases; any failure exits non-zero:
     (b) the ``svtyper-torch`` and ``svtyper-torch-sso`` console scripts
     resolved from ``setup.py`` under the jax refusal, and
     ``svtyper-torch`` on the golden example byte-identical to phase 4;
-    (c) ``tools.make_example_data`` byte-identical to ``data/``.
+    (c) ``tools.make_example_data`` byte-identical to ``data/``;
+16. ``tools.bench.run()``, the port of ``bench.py``, on every visible
+    card (one here), at a reduced size: its main row on phase 14's
+    1,600-event fixture (the bench's own generator, so the same BAM,
+    linked into the bench's cache), a 300-event BND row and a 400 × 2
+    two-sample row (simulated by a second child process beside phases
+    6-15, started after phase 5's timed runs), and the CLI row on 20,500 tiled records in a child process.
+    The line must hold every key of ``bench.py``'s, pass its accuracy
+    gate, show its cold pass cold (bytes inflated, few cache hits), and
+    every engine pass must launch the GL kernel once per chunk, shard
+    and sample (the CLI row once per chunk and shard).
 
 The port runs with jax and the JAX package (``svtyper_tpu``) refused,
 and neither may be loaded at the end.
@@ -90,14 +100,15 @@ and neither may be loaded at the end.
 Each phase that drives the CLI, a tool or the full-column step zeroes
 ``gl_kernel.LAUNCHES`` just before and reads it just after (phases 7 and
 11 read a child process's count from the engine's ``gl_launches`` in its
-``SVT_CLI_STATS``), and fails if the kernel did not run as often as the
-phase's chunks (phase 13: its steps and shards; phase 14: never) ask;
-the kernel line reports their sum.
+``SVT_CLI_STATS``, phase 16 its CLI row's), and fails if the kernel did
+not run as often as the phase's chunks (phase 13: its steps and shards;
+phase 14: never) ask; the kernel line reports their sum.
 
 ``--multi-card`` is the check for a host with several cards: it runs
 only the phases that span cards (6, 7, 10, 13 and 14) and the
 single-card phase 5 they are compared with, and prints no kernel line
-(phase 3 measures the kernel).
+(phase 3 measures the kernel); the bench (phase 16) runs only on one
+card.
 
 Prints diagnostics, then the card's name and power limit, one JSON line
 describing each kernel, and last the result line
@@ -137,7 +148,11 @@ SOAK_INTERVAL = 0.5  # CLI soak: seconds between memory samples
 FULL_REPS = 20  # phase 13: classifier calls per CUDA-event window
 PREP_SIZES = (1024, 4096)  # phase 14's chunk sizes
 PREP_EVENTS = 1600  # phase 14's second fixture: the tools' default, untiled
-PREP_SIM_TIMEOUT_S = 900
+SIM_TIMEOUT_S = 900  # a fixture simulated beside the phases
+BENCH_CACHE = os.path.join(WORK, "bench")
+BENCH_BND_EVENTS = 300  # phase 16's rows; the main row is phase 14's fixture
+BENCH_MS_VARIANTS = 400
+BENCH_CLI_VARIANTS = N_RECORDS
 
 
 class _RefuseJax:
@@ -728,15 +743,12 @@ def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
     return total
 
 
-def start_prep_fixture():
-    """Simulates phase 14's second fixture (``tools.common.default_fixture``
-    at ``PREP_EVENTS``) in a child process, under the jax refusal, while
-    phases 3-13 run → (the process, its stderr path)."""
-    err = os.path.join(WORK, "prep_fixture.err")
+def start_child(name, code):
+    """Runs ``code`` in a child process under the jax refusal, beside
+    the phases that follow → (the process, its stderr path)."""
+    err = os.path.join(WORK, name + ".err")
     code = ("import sys; import chip_smoke; "
-            "sys.meta_path.insert(0, chip_smoke._RefuseJax()); "
-            "from svtyper_tpu_torch.tools import common; "
-            "common.default_fixture(%d)" % PREP_EVENTS)
+            "sys.meta_path.insert(0, chip_smoke._RefuseJax()); " + code)
     with open(err, "w") as fh:
         proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
                                 env=dict(os.environ, PYTHONPATH=ROOT),
@@ -744,23 +756,46 @@ def start_prep_fixture():
     return proc, err
 
 
-def wait_prep_fixture(common, sim):
-    """→ the fixture's (bam, vcf) once the child has written it."""
+def start_prep_fixture():
+    """Simulates phase 14's second fixture (``tools.common.default_fixture``
+    at ``PREP_EVENTS``)."""
+    return start_child("prep_fixture", "from svtyper_tpu_torch.tools import "
+                       "common; common.default_fixture(%d)" % PREP_EVENTS)
+
+
+def start_bench_fixtures():
+    """Simulates phase 16's BND and two-sample fixtures into the bench's
+    cache with the bench's own builders."""
+    return start_child("bench_fixtures", (
+        "from svtyper_tpu_torch.tools import bench; "
+        "bench.build_bnd_fixture(%r, %d, 30.0); "
+        "bench.build_ms_fixture(%r, %d, 30.0)")
+        % (BENCH_CACHE, BENCH_BND_EVENTS, BENCH_CACHE, BENCH_MS_VARIANTS))
+
+
+def wait_child(sim, phase: int, what: str) -> None:
+    """Fails unless the child ``sim`` ends with 0 inside the time limit."""
     proc, err = sim
     t0 = time.time()
     try:
-        rc = proc.wait(timeout=PREP_SIM_TIMEOUT_S)
+        rc = proc.wait(timeout=SIM_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
         rc = "timeout"
     if rc != 0:
         with open(err) as fh:
-            check(False, "phase 14: simulating %d events: exit %s\n%s"
-                  % (PREP_EVENTS, rc, fh.read()[-3000:]))
-    log("phase 14: the %d-event fixture was ready %.1f s after phase 13"
-        % (PREP_EVENTS, time.time() - t0))
-    return common.default_fixture(PREP_EVENTS)
+            check(False, "phase %d: simulating %s: exit %s\n%s"
+                  % (phase, what, rc, fh.read()[-3000:]))
+    log("phase %d: %s ready %.1f s after the phase began"
+        % (phase, what, time.time() - t0))
+
+
+def stop_children(sims) -> None:
+    for proc, _ in sims:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def _prep_line(name, r):
@@ -795,8 +830,9 @@ def phase_prep(torch, gl_kernel, common, profile_prep, wgs, sim):
     orig = (extract._chunk_preamble, extract._pack_variant_tables)
     gl_kernel.LAUNCHES = 0
     fixtures = [("wgs30 tiled to %d records" % N_RECORDS, wgs[0], wgs[1])]
+    wait_child(sim, 14, "the %d-event fixture" % PREP_EVENTS)
     fixtures.append(("%d distinct events" % PREP_EVENTS,)
-                    + wait_prep_fixture(common, sim))
+                    + common.default_fixture(PREP_EVENTS))
     for name, bam, vcf in fixtures:
         results, prof = profile_prep.run(
             bam, vcf, sizes=PREP_SIZES, shards=shards, device="cuda",
@@ -899,11 +935,65 @@ def phase_entry_points(gl_kernel, reference_parity, make_example_data,
     return total
 
 
+def phase_bench(gl_kernel, common, bench, sim):
+    """Phase 16: ``tools.bench.run()`` on the card, its main row on phase
+    14's fixture (bench.py's generator at ``PREP_EVENTS``: the same BAM)
+    → its GL launches, the CLI child's included."""
+    wait_child(sim, 16, "the BND and two-sample fixtures")
+    bam, vcf = common.default_fixture(PREP_EVENTS)
+    seeded = os.path.join(BENCH_CACHE, "bench_v3_n%d_d30" % PREP_EVENTS)
+    os.makedirs(BENCH_CACHE, exist_ok=True)
+    for src, dst in ((bam, seeded + ".bam"), (bam + ".bai", seeded + ".bam.bai"),
+                     (vcf, seeded + ".vcf")):
+        os.link(src, dst)
+    gl_kernel.LAUNCHES = 0
+    res = bench.run(n_variants=PREP_EVENTS, depth=30.0,
+                    bnd_events=BENCH_BND_EVENTS,
+                    ms_variants=BENCH_MS_VARIANTS,
+                    cli_variants=BENCH_CLI_VARIANTS, cache=BENCH_CACHE,
+                    emit=phase_logger(16))
+    launches = gl_kernel.LAUNCHES
+    with open(os.path.join(ROOT, "BENCH_r05.json")) as fh:
+        missing = set(json.load(fh)["parsed"]) - set(res)
+    check(not missing, "phase 16: keys missing from the bench's line: %s"
+          % sorted(missing))
+    check(res["accuracy_degraded"] is None, "phase 16: accuracy gate: %s"
+          % res["accuracy_degraded"])
+    check(res["cold_checked"] and res["cold_inflate_bytes"] > 0,
+          "phase 16: the cold pass was not shown cold (%d bytes inflated, "
+          "%d cache hits)" % (res["cold_inflate_bytes"],
+                              res["cold_cache_hits"]))
+    for p in res["engine_passes"]:
+        check(p["gl_launches"] == p["chunks"] * p["shards"] * p["samples"]
+              > 0, "phase 16: %s" % p)
+    check(launches == sum(p["gl_launches"] for p in res["engine_passes"]),
+          "phase 16: %d GL launches in the process, the passes count %d"
+          % (launches, sum(p["gl_launches"] for p in res["engine_passes"])))
+    check(res["cli_gl_launches"] == res["cli_chunks"] * res["shards"] > 0,
+          "phase 16: the CLI row launched %d GL kernels for %d chunks"
+          % (res["cli_gl_launches"], res["cli_chunks"]))
+    check("jax" not in sys.modules, "phase 16: jax was imported")
+    log("phase 16: bench on %d shard(s): warm %.1f, cold %.1f (%d distinct, "
+        "%d bytes inflated, %d cache hits), oracle %.2f, BND %.1f, "
+        "two-sample %.1f, CLI %.1f (steady %.1f) variants/s; concordance "
+        "%.4f / %.4f / %.4f; %d + %d GL launches; fixtures %.1f s, run "
+        "%.1f s" % (
+            res["shards"], res["value"], res["cold_vps"], res["n_cold"],
+            res["cold_inflate_bytes"], res["cold_cache_hits"],
+            res["oracle_vps"], res["bnd_vps"], res["multisample_vps"],
+            res["cli_vps"], res["cli_steady_vps"], res["gt_concordance"],
+            res["bnd_concordance"], res["multisample_concordance"],
+            launches, res["cli_gl_launches"], res["fixture_build_s"],
+            res["run_s"]))
+    return launches + res["cli_gl_launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--multi-card", action="store_true",
                     help="phases 1, 2, 5-7, 10, 13 and 14 on a host with "
-                         "two or more cards")
+                         "two or more cards (phase 16, the bench, runs in "
+                         "the one-card mode only)")
     multi_card = ap.parse_args(argv).multi_card
     sys.meta_path.insert(0, _RefuseJax())
     import torch
@@ -920,8 +1010,8 @@ def main(argv=None) -> int:
     from svtyper_tpu_torch.cli import classic
     from svtyper_tpu_torch.ops import _build, gl_kernel
     from svtyper_tpu_torch.tools import (
-        common, dump_chunk_args, gl_bench, make_example_data, profile_chunks,
-        profile_prep, reference_parity, scaling_curve, soak,
+        bench, common, dump_chunk_args, gl_bench, make_example_data,
+        profile_chunks, profile_prep, reference_parity, scaling_curve, soak,
     )
     from svtyper_tpu_torch.utils import fixture, parity
 
@@ -933,12 +1023,15 @@ def main(argv=None) -> int:
         % (smi, torch.__version__, torch.version.cuda,
            torch.cuda.device_count()))
     phase_build(_build, native)
-    sim = start_prep_fixture()
+    sims = [start_prep_fixture()]
     try:
         if not multi_card:
             max_err, times = phase_kernel(torch, gl_kernel, parity, gl_bench)
             golden_out = phase_golden(classic, parity)
         wgs, launches = phase_slice(torch, classic, gl_kernel, fixture)
+        if not multi_card:
+            # after phase 5's timed CLI runs, so it takes no core from them
+            sims.append(start_bench_fixtures())
         launches += phase_multidevice(torch, classic, gl_kernel, wgs)
         launches += phase_multihost(torch, wgs)
         if not multi_card:
@@ -949,14 +1042,13 @@ def main(argv=None) -> int:
             launches += phase_soak(gl_kernel, soak, WGS_VCF, wgs[0])
             launches += phase_dump(gl_kernel, dump_chunk_args, wgs)
         launches += phase_full_column(torch, gl_kernel, wgs)
-        phase_prep(torch, gl_kernel, common, profile_prep, wgs, sim)
+        phase_prep(torch, gl_kernel, common, profile_prep, wgs, sims[0])
         if not multi_card:
             launches += phase_entry_points(gl_kernel, reference_parity,
                                            make_example_data, golden_out)
+            launches += phase_bench(gl_kernel, common, bench, sims[1])
     finally:
-        if sim[0].poll() is None:
-            sim[0].kill()
-            sim[0].wait()
+        stop_children(sims)
     check("jax" not in sys.modules, "jax was imported")
     check("svtyper_tpu" not in sys.modules, "svtyper_tpu was imported")
     if multi_card:

@@ -23,7 +23,10 @@ a plain function that tests and ``chip_smoke.py`` call:
                        (``scripts/run_reference_parity.sh``), with its
                        diff ``parity_diff`` (``scripts/parity_diff.py``);
 - ``make_example_data`` the ``data/`` example BAM and VCF
-                       (``scripts/make_example_data.py``).
+                       (``scripts/make_example_data.py``);
+- ``bench``            end-to-end variants/s of the engine and the CLI
+                       against the float64 oracle, with the accuracy
+                       gate (``bench.py``).
 
 With no ``device`` a tool that drives the engine runs on CUDA and exits
 non-zero where there is none; the CPU runs only when a caller passes
