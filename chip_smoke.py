@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Smoke test of svtyper_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py                # one card: phases 1-16
+    python3 chip_smoke.py                # one card: phases 1-17
     python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10, 13, 14
 
 Drives the port's shipped command (``svtyper_tpu_torch.cli.classic``),
 its tools (``svtyper_tpu_torch.tools``), its full-column device step
 (``svtyper_tpu_torch.parallel``) and its console scripts on the card and
-checks them end to end, in sixteen phases; any failure exits non-zero:
+checks them end to end, in seventeen phases; any failure exits
+non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
-2. build, both at once: ``csrc/gl_kernel.cu`` with nvcc and the port's
-   own native BAM decoder (``bamio/_native/bamcore.cpp``, make and g++),
-   each into ``build/svtyper_tpu_torch/``, then loads both (no
+2. build, all at once: ``csrc/gl_kernel.cu`` and
+   ``csrc/classify_kernel.cu`` with one nvcc each and the port's own
+   native BAM decoder (``bamio/_native/bamcore.cpp``, make and g++),
+   each into ``build/svtyper_tpu_torch/``, then loads all three (no
    pure-Python fallback);
 3. kernel against its plain twin, on the card, on the random and
    adversarial GL grids at every ``GRID_SIZES`` N (some below, some not
@@ -45,7 +47,8 @@ checks them end to end, in sixteen phases; any failure exits non-zero:
    the card(s): rank 0's VCF byte-identical to phase 5's, rank 1's
    empty;
 8. profile: the CLI with ``--profile`` on the golden example writes a
-   Chrome trace that names the GL kernel;
+   Chrome trace that names the classify and GL kernels and no
+   ``segment_reduce``, and lists the kernels of the step;
 9. ``tools.profile_chunks`` on phase 5's 20,500 records at chunk sizes
    512, 1024, 2048 and 4096: integer fields identical across sizes;
 10. ``tools.scaling_curve`` on the same records: 1 and 2 shards on one
@@ -60,9 +63,10 @@ checks them end to end, in sixteen phases; any failure exits non-zero:
     semantic reference of the engine's ``classify_compact``): (a)
     ``parallel.dryrun.entry()`` on the 64-variant synthetic chunk, every
     variant called, counts bit-identical to ``classify_compact``'s and
-    int fields equal to the CPU twin's; (b) the first 1,024 records of
-    phase 5's fixture through ``prepare_chunk``: both classifiers'
-    counts, and the GL kernel's rows from them, bit-identical, the int
+    the classify kernel's, int fields equal to the CPU twin's; (b) the
+    first 1,024 records of phase 5's fixture through ``prepare_chunk``:
+    both classifiers' counts and the classify kernel's, and the GL
+    kernel's rows from them, bit-identical, the int
     fields equal to ``TorchEngine``'s, and each classifier's device ms
     per chunk; (c) ``make_sharded_step`` over every card (two shards on
     ``cuda:0`` when there is one): every field equal to each shard's
@@ -92,23 +96,39 @@ checks them end to end, in sixteen phases; any failure exits non-zero:
     The line must hold every key of ``bench.py``'s, pass its accuracy
     gate, show its cold pass cold (bytes inflated, few cache hits), and
     every engine pass must launch the GL kernel once per chunk, shard
-    and sample (the CLI row once per chunk and shard).
+    and sample (the CLI row once per chunk and shard);
+17. the classify kernel (``csrc/classify_kernel.cu``) against its plain
+    version on the card, on every chunk of phase 5's records (21 x
+    1,024, warm) and of phase 14's 1,600 distinct events (cold): counts
+    bit-identical to ``unwire`` → ``classify_compact``'s, and the
+    engine's ``_step`` rows bit-identical to the plain path's
+    (``unwire`` → ``classify_compact`` → the GL kernel); at N = 1,024
+    and 4,096 the kernel's device ms (CUDA-graph replay) and call ms
+    beside the plain version's, both steps' ms and host enqueue ms per
+    shard per chunk, and the bound; then the engine's device profile
+    over phase 5's records: H2D, step and D2H per chunk (CUDA events)
+    and the device's busy share over a ``genotype_stream`` pass
+    (torch.profiler).
 
 The port runs with jax and the JAX package (``svtyper_tpu``) refused,
 and neither may be loaded at the end.
 
 Each phase that drives the CLI, a tool or the full-column step zeroes
-``gl_kernel.LAUNCHES`` just before and reads it just after (phases 7 and
-11 read a child process's count from the engine's ``gl_launches`` in its
-``SVT_CLI_STATS``, phase 16 its CLI row's), and fails if the kernel did
-not run as often as the phase's chunks (phase 13: its steps and shards;
-phase 14: never) ask; the kernel line reports their sum.
+both kernels' counts (``gl_kernel.LAUNCHES`` and
+``classify_kernel.LAUNCHES``) just before and reads them just after
+(phases 7 and 11 read a child process's counts from the engine's
+``classify_launches`` and ``gl_launches`` in its ``SVT_CLI_STATS``,
+phase 16 its CLI row's), and fails unless each kernel ran as often as
+the phase's chunks ask: the engine's step launches each once per shard
+of every chunk, phase 13's full-column step the GL kernel alone (once
+per step and shard), phase 14 neither. The kernel line reports their
+sums; phase 17's comparisons are not counted.
 
 ``--multi-card`` is the check for a host with several cards: it runs
 only the phases that span cards (6, 7, 10, 13 and 14) and the
 single-card phase 5 they are compared with, and prints no kernel line
-(phase 3 measures the kernel); the bench (phase 16) runs only on one
-card.
+(phases 3 and 17 measure the kernels); the bench (phase 16) runs only
+on one card.
 
 Prints diagnostics, then the card's name and power limit, one JSON line
 describing each kernel, and last the result line
@@ -140,6 +160,8 @@ CONC_FLOOR = 0.97
 N_ENGINE_CMP = 2048
 GRID_SIZES = (1, 17, 1000, 1024, 1043, 4096, 65536)
 GL_SYMBOL = "gl_rows_kernel"  # the __global__ in csrc/gl_kernel.cu
+# the __global__ in csrc/classify_kernel.cu
+CLASSIFY_SYMBOL = "classify_compact_kernel"
 RANK_TIMEOUT_S = 600
 SWEEP_SIZES = (512, 1024, 2048, 4096)
 SOAK_N = 200_000
@@ -153,6 +175,12 @@ BENCH_CACHE = os.path.join(WORK, "bench")
 BENCH_BND_EVENTS = 300  # phase 16's rows; the main row is phase 14's fixture
 BENCH_MS_VARIANTS = 400
 BENCH_CLI_VARIANTS = N_RECORDS
+CLASSIFY_SIZES = (1024, 4096)  # phase 17's timed chunk sizes
+# phase 17's bound: operations per read and per pair row, counted from
+# csrc/classify_kernel.cu's loop bodies (each add, multiply, divide,
+# compare and select one); the bytes bound the kernel ~8x above them
+READ_ROW_OPS = 13
+PAIR_ROW_OPS = 26
 
 
 class _RefuseJax:
@@ -170,13 +198,59 @@ def check(ok: bool, msg: str) -> None:
         raise SystemExit("FAIL: " + msg)
 
 
+class Launches:
+    """The launch counts of the port's two kernels, ``LAUNCHES`` of
+    ``ops/gl_kernel.py`` and of ``ops/classify_kernel.py``. A phase
+    zeroes both just before it drives the main path and checks both just
+    after; ``total`` sums what the phases checked, for the kernel line."""
+
+    def __init__(self, gl_kernel, classify_kernel):
+        self.gl_kernel = gl_kernel
+        self.classify_kernel = classify_kernel
+        self.total = {"gl": 0, "classify": 0}
+
+    def zero(self) -> None:
+        self.gl_kernel.LAUNCHES = 0
+        self.classify_kernel.LAUNCHES = 0
+
+    def now(self) -> dict:
+        return {"gl": self.gl_kernel.LAUNCHES,
+                "classify": self.classify_kernel.LAUNCHES}
+
+    def add(self, gl: int, classify: int) -> None:
+        """Launches counted elsewhere (a child's ``SVT_CLI_STATS``)."""
+        self.total["gl"] += gl
+        self.total["classify"] += classify
+
+    def check(self, phase: int, gl: int, classify=None) -> None:
+        """Fails unless the launches since ``zero()`` are ``gl`` of the
+        GL kernel and ``classify`` of the classify kernel (by default as
+        many: the engine's step launches both), ``gl`` > 0; adds them to
+        the totals."""
+        want = {"gl": gl, "classify": gl if classify is None else classify}
+        got = self.now()
+        check(got == want and gl > 0, "phase %d: kernel launches %s, "
+              "expected %s" % (phase, got, want))
+        self.add(**got)
+
+
+def same_bits(a, b) -> bool:
+    """Two float32 tensors of one shape, equal bit for bit."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 def phase_build(_build, native):
-    """Phase 2: the CUDA kernel and the native decoder, built side by
-    side from the checkout's sources and loaded."""
+    """Phase 2: both CUDA kernels and the native decoder, built side by
+    side from the checkout's sources (one nvcc per kernel, all started
+    together; ``_build.load`` locks each library on its own) and
+    loaded."""
     from concurrent.futures import ThreadPoolExecutor
 
     def timed(fn):
@@ -184,14 +258,19 @@ def phase_build(_build, native):
         fn()
         return time.time() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        kernel = pool.submit(timed, lambda: _build.load("gl_kernel"))
+    kernels = ("gl_kernel", "classify_kernel")
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=len(kernels) + 1) as pool:
+        built = [pool.submit(timed, lambda k=k: _build.load(k))
+                 for k in kernels]
         decoder = pool.submit(timed, native.require_lib)
-        k_s, d_s = kernel.result(), decoder.result()
-    log("phase 2: built and loaded %s in %.2f s (nvcc %s) and %s in %.2f s "
-        "(make), side by side"
-        % (_build.build("gl_kernel"), k_s, " ".join(_build.NVCC_FLAGS),
-           native._SO, d_s))
+        k_s = [f.result() for f in built]
+        d_s = decoder.result()
+    log("phase 2: built and loaded %s (nvcc %s) and %s in %.2f s (make), "
+        "side by side: %.2f s in all"
+        % (", ".join("%s in %.2f s" % (_build.build(k), t)
+                     for k, t in zip(kernels, k_s)),
+           " ".join(_build.NVCC_FLAGS), native._SO, d_s, time.time() - t0))
 
 
 def phase_kernel(torch, gl_kernel, parity, gl_bench):
@@ -283,7 +362,7 @@ def concordance(path, truth):
     return hit / max(total, 1), total
 
 
-def phase_slice(torch, classic, gl_kernel, fixture):
+def phase_slice(torch, classic, K, fixture):
     t0 = time.time()
     bam, vcf, truth = fixture.simulate_wgs(
         os.path.dirname(WGS_VCF), N_EVENTS, depth=30.0
@@ -298,30 +377,32 @@ def phase_slice(torch, classic, gl_kernel, fixture):
     for r in (1, 2):
         out = os.path.join(WORK, "wgs_run%d.vcf" % r)
         stats_path = os.path.join(WORK, "stats%d.json" % r)
-        gl_kernel.LAUNCHES = 0
+        K.zero()
         wall = run_cli(classic, tiled, bam, out, extra=("-l", lib),
                        stats=stats_path, device="cuda")
-        launches = gl_kernel.LAUNCHES
+        K.check(5, n_chunks)
         with open(stats_path) as fh:
             st = json.load(fh)
-        check(launches == n_chunks, "run %d: GL kernel launched %d times "
-              "for %d chunks" % (r, launches, n_chunks))
         check(st["chunks"] == n_chunks, "run %d: %s chunks" % (r, st["chunks"]))
+        check(st["classify_launches"] == st["gl_launches"] == n_chunks,
+              "run %d: the engine counted %d classify and %d GL launches "
+              "for %d chunks" % (r, st["classify_launches"],
+                                 st["gl_launches"], n_chunks))
         conc, n_eval = concordance(out, truth)
         check(n_eval == N_RECORDS, "run %d: %d records out" % (r, n_eval))
         check(conc >= CONC_FLOOR, "run %d: GT concordance %.4f < %.2f"
               % (r, conc, CONC_FLOOR))
         vps = N_RECORDS / st["genotype_wall_s"]
-        log("phase 5: run %d: %d records, %d chunks, %d GL kernel launches, "
-            "GT concordance %.4f; %.1f variants/s over genotyping "
-            "(%.2f s; whole command %.2f s incl. library %s); prep %.3f s, "
-            "send %.3f s, sync %.3f s; %d reads, %d pairs"
-            % (r, N_RECORDS, st["chunks"], launches, conc, vps,
-               st["genotype_wall_s"], wall, "scan" if r == 1 else "load",
-               st["prep_s"], st["send_s"], st["sync_s"], st["reads"],
-               st["pairs"]))
-        runs.append((out, launches))
-    check(read_bytes(runs[0][0]) == read_bytes(runs[1][0]),
+        log("phase 5: run %d: %d records, %d chunks, %d classify and %d GL "
+            "kernel launches, GT concordance %.4f; %.1f variants/s over "
+            "genotyping (%.2f s; whole command %.2f s incl. library %s); "
+            "prep %.3f s, send %.3f s, sync %.3f s; %d reads, %d pairs"
+            % (r, N_RECORDS, st["chunks"], st["classify_launches"],
+               st["gl_launches"], conc, vps, st["genotype_wall_s"], wall,
+               "scan" if r == 1 else "load", st["prep_s"], st["send_s"],
+               st["sync_s"], st["reads"], st["pairs"]))
+        runs.append(out)
+    check(read_bytes(runs[0]) == read_bytes(runs[1]),
           "two runs gave different output")
     log("phase 5: the two runs are byte-identical")
 
@@ -345,9 +426,10 @@ def phase_slice(torch, classic, gl_kernel, fixture):
     check(not bad.any(), "CUDA vs CPU f32 engine: int fields differ in "
           "columns %s" % bad.nonzero()[0].tolist())
     log("phase 5: first %d records, TorchEngine on the card vs the CPU "
-        "(float32 twin): int fields identical; max abs float diff %.3g"
+        "(float32, the plain versions): int fields identical; max abs "
+        "float diff %.3g"
         % (N_ENGINE_CMP, float(abs(a[:, 14:] - b[:, 14:]).max())))
-    return (bam, tiled, lib, runs[0][0]), runs[0][1] + runs[1][1]
+    return bam, tiled, lib, runs[0]
 
 
 def stats_line(st):
@@ -356,8 +438,8 @@ def stats_line(st):
                st["sync_s"]))
 
 
-def phase_multidevice(torch, classic, gl_kernel, wgs):
-    """Phase 6 → GL launches of the two CLI runs."""
+def phase_multidevice(torch, classic, K, wgs):
+    """Phase 6: the CLI twice, each chunk sharded over every card."""
     from svtyper_tpu_torch.parallel.dryrun import dryrun_multichip
 
     bam, tiled, lib, want = wgs
@@ -365,28 +447,29 @@ def phase_multidevice(torch, classic, gl_kernel, wgs):
     devices = (["cuda:%d" % i for i in range(n_vis)] if n_vis > 1
                else ["cuda:0", "cuda:0"])
     dryrun_multichip(len(devices), "cuda:0")
-    total = 0
     for r in (1, 2):
         out = os.path.join(WORK, "wgs_multidevice%d.vcf" % r)
         stats_path = os.path.join(WORK, "stats_multidevice%d.json" % r)
-        gl_kernel.LAUNCHES = 0
+        K.zero()
         wall = run_cli(classic, tiled, bam, out, extra=("-l", lib),
                        stats=stats_path, devices=devices)
-        launches = gl_kernel.LAUNCHES
+        launches = K.now()
         with open(stats_path) as fh:
             st = json.load(fh)
         check(read_bytes(out) == read_bytes(want),
               "multi-device run %d: output differs from phase 5's" % r)
-        check(launches == st["gl_launches"] == st["chunks"] * len(devices),
-              "multi-device run %d: %d GL launches (engine: %d) for %d "
-              "chunks x %d shards" % (r, launches, st["gl_launches"],
-                                      st["chunks"], len(devices)))
+        n_launch = st["chunks"] * len(devices)
+        check(st["classify_launches"] == st["gl_launches"] == n_launch,
+              "multi-device run %d: the engine counted %d classify and %d GL "
+              "launches for %d chunks x %d shards"
+              % (r, st["classify_launches"], st["gl_launches"], st["chunks"],
+                 len(devices)))
+        K.check(6, n_launch)
         log("phase 6: run %d: %d shards on %s: byte-identical to phase 5; "
-            "%d chunks, %d GL launches; %s (whole command %.2f s)"
-            % (r, len(devices), ",".join(devices), st["chunks"], launches,
-               stats_line(st), wall))
-        total += launches
-    return total
+            "%d chunks, %d classify and %d GL launches; %s (whole command "
+            "%.2f s)"
+            % (r, len(devices), ",".join(devices), st["chunks"],
+               launches["classify"], launches["gl"], stats_line(st), wall))
 
 
 def free_port() -> int:
@@ -406,8 +489,8 @@ _RANK = (
 )
 
 
-def phase_multihost(torch, wgs):
-    """Phase 7: two gloo ranks → their summed GL launches."""
+def phase_multihost(torch, K, wgs):
+    """Phase 7: two gloo ranks, their launches added to ``K``."""
     bam, tiled, lib, want = wgs
     port = free_port()
     procs, outs, stats, errs = [], [], [], []
@@ -451,133 +534,133 @@ def phase_multihost(torch, wgs):
           "multi-host rank 0 output differs from phase 5's")
     check(os.path.getsize(outs[1]) == 0, "multi-host rank 1 wrote output")
     n_dev = torch.cuda.device_count()
-    total = 0
     for rank in (0, 1):
         with open(stats[rank]) as fh:
             st = json.load(fh)
-        check(st["gl_launches"] == st["chunks"] * n_dev > 0,
-              "multi-host rank %d: %d GL launches for %d chunks"
-              % (rank, st["gl_launches"], st["chunks"]))
-        total += st["gl_launches"]
-        log("phase 7: rank %d: %d chunks, %d GL launches; %s, gather %.6f s "
-            "(whole command %.2f s)"
-            % (rank, st["chunks"], st["gl_launches"], stats_line(st),
-               st["gather_s"], st["total_wall_s"]))
+        check(st["classify_launches"] == st["gl_launches"]
+              == st["chunks"] * n_dev > 0,
+              "multi-host rank %d: %d classify and %d GL launches for %d "
+              "chunks" % (rank, st["classify_launches"], st["gl_launches"],
+                          st["chunks"]))
+        K.add(st["gl_launches"], st["classify_launches"])
+        log("phase 7: rank %d: %d chunks, %d classify and %d GL launches; "
+            "%s, gather %.6f s (whole command %.2f s)"
+            % (rank, st["chunks"], st["classify_launches"],
+               st["gl_launches"], stats_line(st), st["gather_s"],
+               st["total_wall_s"]))
     log("phase 7: 2 ranks over gloo: rank 0 byte-identical to phase 5, "
         "rank 1 empty; both processes %.2f s" % wall)
-    return total
 
 
-def phase_profile(classic, gl_kernel, golden_out):
-    """Phase 8 → GL launches of the profiled run."""
+def phase_profile(classic, K, golden_out):
+    """Phase 8: the profiled CLI; its trace must name both kernels and
+    no ``segment_reduce``."""
     data = os.path.join(ROOT, "data")
     prof = os.path.join(WORK, "profile")
     out = os.path.join(WORK, "example_profiled.vcf")
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     wall = run_cli(classic, os.path.join(data, "example.vcf"),
                    os.path.join(data, "example.sim.sorted.bam"), out,
                    extra=("-n", "60000", "--profile", prof))
-    launches = gl_kernel.LAUNCHES
-    check(launches > 0, "profiled run launched no GL kernel")
+    launches = K.now()["gl"]
+    K.check(8, launches)
     check(read_bytes(out) == read_bytes(golden_out),
           "profiled output differs from phase 4's")
     traces = os.listdir(prof)
     check(len(traces) == 1, "profile dir holds %s" % traces)
     with open(os.path.join(prof, traces[0])) as fh:
         events = json.load(fh)["traceEvents"]
-    gl = [e for e in events if GL_SYMBOL in e.get("name", "")]
-    check(len(gl) > 0, "the trace does not name %s" % GL_SYMBOL)
-    log("phase 8: --profile wrote %s (%d events); %d %s events for %d "
-        "launches, %.1f us in all; whole command %.2f s"
-        % (traces[0], len(events), len(gl), GL_SYMBOL, launches,
-           sum(e.get("dur", 0) for e in gl), wall))
-    return launches
+    named = {sym: [e for e in events if sym in e.get("name", "")]
+             for sym in (CLASSIFY_SYMBOL, GL_SYMBOL)}
+    for sym, evs in named.items():
+        check(len(evs) > 0, "the trace does not name %s" % sym)
+    seg = sorted({e["name"] for e in events
+                  if "segment_reduce" in e.get("name", "")})
+    check(not seg, "the profiled step still runs %s" % seg)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e["name"][:60] for e in kernels})
+    log("phase 8: --profile wrote %s (%d events); %s for %d launches of "
+        "each; no segment_reduce; %d device kernel events of %d names "
+        "(%.2f per launch): %s; whole command %.2f s"
+        % (traces[0], len(events), ", ".join(
+            "%d %s events, %.1f us in all"
+            % (len(evs), sym, sum(e.get("dur", 0) for e in evs))
+            for sym, evs in named.items()), launches, len(kernels),
+           len(names), len(kernels) / launches, " | ".join(names), wall))
 
 
 def phase_logger(phase: int):
     return lambda obj: log("phase %d: %s" % (phase, json.dumps(obj)))
 
 
-def launched(gl_kernel, phase: int, want: int) -> int:
-    """The GL launches since the phase zeroed the count; fails unless
-    they are the ``want`` its chunks ask for."""
-    got = gl_kernel.LAUNCHES
-    check(got == want > 0, "phase %d: %d GL kernel launches, expected %d"
-          % (phase, got, want))
-    return got
-
-
-def phase_chunk_sweep(gl_kernel, profile_chunks, wgs):
-    """Phase 9 → its GL launches: one for the first call of each chunk
-    size, then one per chunk of every rep."""
+def phase_chunk_sweep(K, profile_chunks, wgs):
+    """Phase 9: one launch of each kernel for the first call of each
+    chunk size, then one per chunk of every rep."""
     bam, tiled = wgs[:2]
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     results, _ = profile_chunks.run(bam, tiled, sizes=SWEEP_SIZES,
                                     device="cuda", emit=phase_logger(9))
     want = sum(1 + sum(rep["chunks"] for rep in r["reps"]) for r in results)
-    launches = launched(gl_kernel, 9, want)
+    K.check(9, want)
     best = max(results, key=lambda r: r["median_variants_per_s"])
     base = next(r for r in results if r["chunk_size"] == CHUNK)
     log("phase 9: int fields identical across chunk sizes %s; fastest "
         "chunk %d at %.1f variants/s (median of %d), %.3fx chunk %d's; %d "
-        "GL launches" % (
+        "classify and GL launches each" % (
             list(SWEEP_SIZES), best["chunk_size"],
             best["median_variants_per_s"], len(best["reps"]),
             best["median_variants_per_s"] / base["median_variants_per_s"],
-            CHUNK, launches))
-    return launches
+            CHUNK, want))
 
 
-def phase_scaling(torch, gl_kernel, scaling_curve, wgs):
-    """Phase 10 → its GL launches: a warm-up and a timed run per device
-    count, one launch per shard of every chunk."""
+def phase_scaling(torch, K, scaling_curve, wgs):
+    """Phase 10: a warm-up and a timed run per device count, one launch
+    of each kernel per shard of every chunk."""
     bam, tiled = wgs[:2]
     counts = (1, 2) if torch.cuda.device_count() == 1 else (1, 2, 4)
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     rows = scaling_curve.run(bam, tiled, device="cuda", counts=counts,
                              emit=phase_logger(10))
     want = sum(2 * r["chunks"] * r["devices"] for r in rows)
-    launches = launched(gl_kernel, 10, want)
+    K.check(10, want)
     log("phase 10: %s devices on %s card(s): every output identical to one "
-        "device's; %d GL launches"
-        % ([r["devices"] for r in rows], [r["cards"] for r in rows],
-           launches))
-    return launches
+        "device's; %d classify and GL launches each"
+        % ([r["devices"] for r in rows], [r["cards"] for r in rows], want))
 
 
-def phase_soak(gl_kernel, soak, wgs_vcf, bam):
-    """Phase 11 → the GL launches of the library and the CLI soak."""
-    gl_kernel.LAUNCHES = 0
+def phase_soak(K, soak, wgs_vcf, bam):
+    """Phase 11: the library and the CLI soak."""
+    K.zero()
     lib = soak.soak_library(bam, wgs_vcf, n=SOAK_N, device="cuda",
                             every=SOAK_EVERY, emit=phase_logger(11))
-    launches = launched(gl_kernel, 11, 1 + lib["chunks"])
+    K.check(11, 1 + lib["chunks"])
     cli = soak.soak_cli(bam, wgs_vcf, n=SOAK_N, interval=SOAK_INTERVAL,
                         emit=phase_logger(11))
-    check(cli["gl_launches"] == cli["chunks"] > 0,
-          "phase 11: the CLI soak launched %d GL kernels for %d chunks"
-          % (cli["gl_launches"], cli["chunks"]))
+    check(cli["classify_launches"] == cli["gl_launches"] == cli["chunks"] > 0,
+          "phase 11: the CLI soak launched %d classify and %d GL kernels "
+          "for %d chunks" % (cli["classify_launches"], cli["gl_launches"],
+                             cli["chunks"]))
+    K.add(cli["gl_launches"], cli["classify_launches"])
     log("phase 11: library soak %d variants, RSS drift %.4f, CUDA reserved "
         "drift %.4f; CLI soak %d records, RSS drift %.4f, CUDA reserved "
-        "drift %.4f (limit 0.10 each); %d + %d GL launches"
+        "drift %.4f (limit 0.10 each); %d + %d launches of each kernel"
         % (lib["soak_variants"], lib["rss_drift"], lib["cuda_drift"],
            cli["cli_soak_variants"], cli["rss_drift"], cli["cuda_drift"],
-           launches, cli["gl_launches"]))
-    return launches + cli["gl_launches"]
+           1 + lib["chunks"], cli["gl_launches"]))
 
 
-def phase_dump(gl_kernel, dump_chunk_args, wgs):
-    """Phase 12 → its GL launch (one chunk)."""
+def phase_dump(K, dump_chunk_args, wgs):
+    """Phase 12: one chunk, one launch of each kernel."""
     bam, tiled = wgs[:2]
     out = os.path.join(WORK, "chunkbin")
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     written = dump_chunk_args.dump(bam, tiled, out, device="cuda",
                                    emit=phase_logger(12))
-    launches = launched(gl_kernel, 12, 1)
+    K.check(12, 1)
     check(all(os.path.getsize(p) > 0 for p in written),
           "phase 12: an empty dump file")
-    log("phase 12: %d files in %s; %d GL launch"
-        % (len(written), out, launches))
-    return launches
+    log("phase 12: %d files in %s; 1 classify and 1 GL launch"
+        % (len(written), out))
 
 
 def device_ms(torch, fn, reps: int):
@@ -607,20 +690,28 @@ def _on(torch, cols, dev):
 
 
 def _compact_counts(torch, chunk, dens, dev):
-    """``classify_compact`` on ``chunk``'s compact wire, sent and unpacked
-    as the engine does (``pack_wire`` → one uint8 buffer → ``unwire``)."""
+    """``chunk``'s compact wire, sent as the engine sends it (``pack_wire``
+    → one uint8 buffer) → (the plain classifier on it: ``unwire`` →
+    ``classify_compact``, the classify kernel on it)."""
     from svtyper_tpu_torch.evidence.device import classify_compact
     from svtyper_tpu_torch.evidence.extract import compact_chunk
-    from svtyper_tpu_torch.gt.engine import pack_wire, unwire
+    from svtyper_tpu_torch.gt.engine import pack_wire
+    from svtyper_tpu_torch.ops.classify_kernel import (
+        classify_compact_cuda, unwire,
+    )
 
     wire, geom = pack_wire(compact_chunk(chunk, min_aligned=20))
-    parts = unwire(torch.from_numpy(wire).to(dev), geom)
-    return lambda: classify_compact(*parts, dens, chunk.n_var,
-                                    dtype=torch.float32)
+    wire = torch.from_numpy(wire).to(dev)
+    parts = unwire(wire, geom)
+    dens = dens.contiguous()
+    return (lambda: classify_compact(*parts, dens, chunk.n_var,
+                                     dtype=torch.float32),
+            lambda: classify_compact_cuda(wire, geom, dens, chunk.n_var))
 
 
-def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
-    """Phase 13: the full-column device step → its GL launches."""
+def phase_full_column(torch, K, wgs, dev="cuda:0"):
+    """Phase 13: the full-column device step (GL launches only: it
+    classifies with ``classify``)."""
     import numpy as np
 
     from svtyper_tpu_torch.evidence.device import classify
@@ -636,14 +727,19 @@ def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
 
     n_int = len(INT_FIELDS)
     f32 = torch.float32
+    gl_kernel = K.gl_kernel
 
     # (a) entry() on the card against the compact path and the CPU twin
     step, args = entry(device=dev)
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     got = {k: v.cpu().numpy() for k, v in step(*args).items()}
-    total = launched(gl_kernel, 13, 1)
+    K.check(13, 1, classify=0)
     chunk, _ = make_synthetic_chunk(n_var=64, frags_per_var=8)
-    compact = _compact_counts(torch, chunk, args[3], dev)().cpu().numpy()
+    plain, kernel = _compact_counts(torch, chunk, args[3], dev)
+    compact, kern = plain(), kernel()
+    check(same_bits(compact, kern), "phase 13: the classify kernel's counts "
+          "differ from classify_compact's on the synthetic chunk")
+    compact = compact.cpu().numpy()
     cstep, cargs = entry(device="cpu")
     twin = {k: v.numpy() for k, v in cstep(*cargs).items()}
     check(got["gt_idx"].shape == (64,) and not got["null"].any(),
@@ -654,8 +750,8 @@ def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
     check(not bad, "phase 13: entry() int fields %s differ from the CPU "
           "twin's" % bad)
     log("phase 13: (a) entry() on %s: 64/64 variants called, counts "
-        "bit-identical to classify_compact's, int fields equal to the CPU "
-        "twin's; 1 GL launch" % dev)
+        "bit-identical to classify_compact's and the classify kernel's, "
+        "int fields equal to the CPU twin's; 1 GL launch" % dev)
 
     # (b) one main-path chunk of phase 5's fixture, both classifiers
     bam, tiled, lib = wgs[:3]
@@ -672,15 +768,18 @@ def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
         return classify(reads, pairs, variants, dens, n_var, 20, dtype=f32,
                         rows_sorted=True)
 
-    comp = _compact_counts(torch, chunk, dens, dev)
-    c_full, c_comp = full(), comp()
+    comp, comp_kernel = _compact_counts(torch, chunk, dens, dev)
+    c_full, c_comp, c_kern = full(), comp(), comp_kernel()
     check(torch.equal(c_full, c_comp), "phase 13: full-column counts differ "
           "from classify_compact's in %d variants"
           % int((c_full != c_comp).any(dim=1).sum()))
+    check(same_bits(c_full, c_kern), "phase 13: full-column counts differ "
+          "from the classify kernel's in %d variants"
+          % int((c_full != c_kern).any(dim=1).sum()))
     flags = [variants[k].to(torch.uint8) for k in ("is_dup", "force_null")]
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     rows = gl_kernel.genotype_rows(c_full, *flags)
-    total += launched(gl_kernel, 13, 1)
+    K.check(13, 1, classify=0)
     rows_comp = gl_kernel.genotype_rows(c_comp, *flags)
     check(torch.equal(rows, rows_comp),
           "phase 13: GL rows of the two classifiers differ")
@@ -698,8 +797,9 @@ def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
         fn = full if name == "classify" else comp
         ms[name].append(device_ms(torch, fn, FULL_REPS))
     log("phase 13: (b) %d records of phase 5's fixture (%d reads, %d "
-        "pairs): full-column counts and GL rows bit-identical to the "
-        "compact path's, int fields equal to TorchEngine's; ms per chunk "
+        "pairs): full-column counts bit-identical to classify_compact's "
+        "and the classify kernel's, GL rows to the compact path's, int "
+        "fields equal to TorchEngine's; ms per chunk "
         "(%d calls, in turns), CUDA events (host enqueue): classify %s, "
         "classify_compact %s" % (
             n_var, int((chunk.reads["var"] < n_var).sum()),
@@ -721,10 +821,10 @@ def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
     stacked = stack_shards(shards)
     dens_np = dens_state(sample.dens_matrix(), "cpu", torch.float64).numpy()
     sharded = make_sharded_step(devices, per, dtype=f32)
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     out = sharded(stacked["reads"], stacked["pairs"], stacked["variants"],
                   np.stack([dens_np] * n_dev))
-    total += launched(gl_kernel, 13, n_dev)
+    K.check(13, n_dev, classify=0)
     for d, (c, d_dev) in enumerate(zip(shards, devices)):
         local = genotype_step(
             _on(torch, c.reads, d_dev), _on(torch, c.pairs, d_dev),
@@ -740,7 +840,6 @@ def phase_full_column(torch, gl_kernel, wgs, dev="cuda:0"):
     log("phase 13: (c) make_sharded_step over %s: %d shards of %d variants, "
         "every field equal to each shard's local result; %d GL launches"
         % (",".join(str(d) for d in devices), n_dev, per, n_dev))
-    return total
 
 
 def start_child(name, code):
@@ -817,7 +916,7 @@ def _prep_line(name, r):
             r["reads"], r["pairs"], r["usable_cores"]))
 
 
-def phase_prep(torch, gl_kernel, common, profile_prep, wgs, sim):
+def phase_prep(torch, K, common, profile_prep, wgs, sim):
     """Phase 14: the engine's host prep per chunk, split, on phase 5's
     tiled fixture and on the tools' untiled one. Runs no device step."""
     from svtyper_tpu_torch.evidence import extract
@@ -828,7 +927,7 @@ def phase_prep(torch, gl_kernel, common, profile_prep, wgs, sim):
     n_vis = torch.cuda.device_count()
     shards = (1, 2) if n_vis == 1 else (1, n_vis)
     orig = (extract._chunk_preamble, extract._pack_variant_tables)
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     fixtures = [("wgs30 tiled to %d records" % N_RECORDS, wgs[0], wgs[1])]
     wait_child(sim, 14, "the %d-event fixture" % PREP_EVENTS)
     fixtures.append(("%d distinct events" % PREP_EVENTS,)
@@ -862,9 +961,9 @@ def phase_prep(torch, gl_kernel, common, profile_prep, wgs, sim):
             "TorchEngine._prepare's, wrappers removed; cProfile of 3 "
             "passes in %s, top:\n%s"
             % (name, path, "\n".join(prof.splitlines()[:16])))
-    check(gl_kernel.LAUNCHES == 0, "phase 14: the GL kernel ran %d times "
-          "during host prep alone" % gl_kernel.LAUNCHES)
-    log("phase 14: no GL kernel launch (host prep alone)")
+    check(K.now() == {"gl": 0, "classify": 0}, "phase 14: kernel launches "
+          "%s during host prep alone" % K.now())
+    log("phase 14: no classify or GL kernel launch (host prep alone)")
 
 
 def console_scripts(setup_py):
@@ -884,24 +983,24 @@ def resolve(target):
     return getattr(importlib.import_module(module), attr)
 
 
-def phase_entry_points(gl_kernel, reference_parity, make_example_data,
-                       golden_out):
-    """Phase 15: the remaining entry points on the card → its GL
-    launches (the mock parity's float32 lanes and the console script)."""
+def phase_entry_points(K, reference_parity, make_example_data, golden_out):
+    """Phase 15: the remaining entry points on the card (launches: the
+    mock parity's float32 lanes and the console script)."""
     # (a) the reference-parity harness against the mock checkout
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     res = reference_parity.run(workdir=os.path.join(WORK, "parity"),
                                device="cuda", mock=True,
                                emit=lambda obj: None)
     card = [l for l in res["lanes"] if l["flavour"] == "cuda"]
     check(res["ok"] and len(card) == 3,
           "phase 15: mock parity lanes %s" % res["lanes"])
-    total = launched(gl_kernel, 15, sum(l["chunks"] for l in card))
+    n_chunks = sum(l["chunks"] for l in card)
+    K.check(15, n_chunks)
     log("phase 15: (a) reference_parity --mock: %d lanes pass (%s); the "
-        "float32 lanes ran %d chunks, %d GL launches" % (
+        "float32 lanes ran %d chunks, %d classify and GL launches each" % (
             len(res["lanes"]), ", ".join(
                 "%s/%s" % (l["lane"], l["flavour"]) for l in res["lanes"]),
-            sum(l["chunks"] for l in card), total))
+            n_chunks, n_chunks))
 
     # (b) the console scripts, resolved from setup.py under the jax refusal
     scripts = console_scripts(os.path.join(ROOT, "setup.py"))
@@ -909,18 +1008,18 @@ def phase_entry_points(gl_kernel, reference_parity, make_example_data,
              for name in ("svtyper-torch", "svtyper-torch-sso")}
     out = os.path.join(WORK, "example_console.vcf")
     data = os.path.join(ROOT, "data")
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     rc = mains["svtyper-torch"](
         ["-i", os.path.join(data, "example.vcf"),
          "-B", os.path.join(data, "example.sim.sorted.bam"), "-n", "60000",
          "-o", out])
     check(rc == 0, "phase 15: svtyper-torch exit code %s" % rc)
-    total += launched(gl_kernel, 15, 1)
+    K.check(15, 1)
     check(read_bytes(out) == read_bytes(golden_out),
           "phase 15: svtyper-torch's output differs from phase 4's")
     log("phase 15: (b) console scripts %s resolved with jax refused; "
         "svtyper-torch on the golden example byte-identical to phase 4, "
-        "1 GL launch" % ", ".join(
+        "1 classify and 1 GL launch" % ", ".join(
             "%s=%s" % (k, scripts[k]) for k in sorted(mains)))
 
     # (c) the example data, regenerated
@@ -932,13 +1031,12 @@ def phase_entry_points(gl_kernel, reference_parity, make_example_data,
             "phase 15: %s differs from data/'s" % os.path.basename(name))
     log("phase 15: (c) make_example_data wrote the BAM, BAI and VCF "
         "byte-identical to data/ in %.1f s" % (time.time() - t0))
-    return total
 
 
-def phase_bench(gl_kernel, common, bench, sim):
+def phase_bench(K, common, bench, sim):
     """Phase 16: ``tools.bench.run()`` on the card, its main row on phase
-    14's fixture (bench.py's generator at ``PREP_EVENTS``: the same BAM)
-    → its GL launches, the CLI child's included."""
+    14's fixture (bench.py's generator at ``PREP_EVENTS``: the same BAM);
+    its launches, the CLI child's included, join ``K``."""
     wait_child(sim, 16, "the BND and two-sample fixtures")
     bam, vcf = common.default_fixture(PREP_EVENTS)
     seeded = os.path.join(BENCH_CACHE, "bench_v3_n%d_d30" % PREP_EVENTS)
@@ -946,13 +1044,12 @@ def phase_bench(gl_kernel, common, bench, sim):
     for src, dst in ((bam, seeded + ".bam"), (bam + ".bai", seeded + ".bam.bai"),
                      (vcf, seeded + ".vcf")):
         os.link(src, dst)
-    gl_kernel.LAUNCHES = 0
+    K.zero()
     res = bench.run(n_variants=PREP_EVENTS, depth=30.0,
                     bnd_events=BENCH_BND_EVENTS,
                     ms_variants=BENCH_MS_VARIANTS,
                     cli_variants=BENCH_CLI_VARIANTS, cache=BENCH_CACHE,
                     emit=phase_logger(16))
-    launches = gl_kernel.LAUNCHES
     with open(os.path.join(ROOT, "BENCH_r05.json")) as fh:
         missing = set(json.load(fh)["parsed"]) - set(res)
     check(not missing, "phase 16: keys missing from the bench's line: %s"
@@ -964,19 +1061,23 @@ def phase_bench(gl_kernel, common, bench, sim):
           "%d cache hits)" % (res["cold_inflate_bytes"],
                               res["cold_cache_hits"]))
     for p in res["engine_passes"]:
-        check(p["gl_launches"] == p["chunks"] * p["shards"] * p["samples"]
-              > 0, "phase 16: %s" % p)
-    check(launches == sum(p["gl_launches"] for p in res["engine_passes"]),
-          "phase 16: %d GL launches in the process, the passes count %d"
-          % (launches, sum(p["gl_launches"] for p in res["engine_passes"])))
-    check(res["cli_gl_launches"] == res["cli_chunks"] * res["shards"] > 0,
-          "phase 16: the CLI row launched %d GL kernels for %d chunks"
-          % (res["cli_gl_launches"], res["cli_chunks"]))
+        check(p["classify_launches"] == p["gl_launches"]
+              == p["chunks"] * p["shards"] * p["samples"] > 0,
+              "phase 16: %s" % p)
+    launches = sum(p["gl_launches"] for p in res["engine_passes"])
+    K.check(16, launches)
+    check(res["cli_classify_launches"] == res["cli_gl_launches"]
+          == res["cli_chunks"] * res["shards"] > 0,
+          "phase 16: the CLI row launched %d classify and %d GL kernels for "
+          "%d chunks" % (res["cli_classify_launches"],
+                         res["cli_gl_launches"], res["cli_chunks"]))
+    K.add(res["cli_gl_launches"], res["cli_classify_launches"])
     check("jax" not in sys.modules, "phase 16: jax was imported")
     log("phase 16: bench on %d shard(s): warm %.1f, cold %.1f (%d distinct, "
         "%d bytes inflated, %d cache hits), oracle %.2f, BND %.1f, "
         "two-sample %.1f, CLI %.1f (steady %.1f) variants/s; concordance "
-        "%.4f / %.4f / %.4f; %d + %d GL launches; fixtures %.1f s, run "
+        "%.4f / %.4f / %.4f; %d + %d launches of each kernel; fixtures "
+        "%.1f s, run "
         "%.1f s" % (
             res["shards"], res["value"], res["cold_vps"], res["n_cold"],
             res["cold_inflate_bytes"], res["cold_cache_hits"],
@@ -985,7 +1086,236 @@ def phase_bench(gl_kernel, common, bench, sim):
             res["bnd_concordance"], res["multisample_concordance"],
             launches, res["cli_gl_launches"], res["fixture_build_s"],
             res["run_s"]))
-    return launches + res["cli_gl_launches"]
+
+
+def classify_bound(gl_bench, compact, n_var, dens):
+    """→ (least ms the card could take for the classifier on this chunk,
+    "bytes" or "operations", the bytes it must move). The bytes: 5 B of
+    each read row of a variant (variant, mapq, sa_mapq, flags), 10 B of
+    each pair row of a variant (variant, ospan, two mapqs, lib, flags),
+    5 B of each variant (vlen, is_del), each distinct density entry the
+    pairs look up and the 1 KiB prob_mapq table once, and 20 B of counts
+    per variant written, over the card's memory rate. Padding rows and
+    the wire's rows the kernel does not read are left out. The
+    operations: the rows' over its float32 rate. The larger wins."""
+    import numpy as np
+
+    from svtyper_tpu_torch.evidence.extract import LIB_INVALID, VARS_I32
+
+    n_lib, width = dens.shape
+    reads = int((compact["cr_u16"][0] < n_var).sum())
+    pv = compact["cp_u16"][0]
+    real = pv < n_var
+    pairs = int(real.sum())
+    ospan = compact["cp_i32"][0][real]
+    vlen = compact["v_i32"][VARS_I32.index("vlen")][pv[real]]
+    lib = compact["cp_u8"][2][real]
+    # the kernel's row of dens: lib clamped to [0, n_lib), LIB_INVALID none
+    row = np.minimum(lib.astype(np.int64), n_lib - 1)
+    entries = []
+    for x in (ospan, np.subtract(ospan, vlen, dtype=np.int32)):
+        ok = (x >= 0) & (x < width) & (lib != LIB_INVALID)
+        entries.append(row[ok] * width + x[ok])
+    distinct = len(np.unique(np.concatenate(entries)))
+    nbytes = 5 * reads + 10 * pairs + 25 * n_var + 4 * distinct + 4 * 256
+    by_bytes = nbytes / gl_bench.PEAK_BYTES_S * 1e3
+    by_ops = ((READ_ROW_OPS * reads + PAIR_ROW_OPS * pairs)
+              / gl_bench.PEAK_F32_S * 1e3)
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes
+    return by_ops, "operations", nbytes
+
+
+def busy_share(trace_path, wall_s):
+    """→ (the share of ``wall_s`` in which the card ran a kernel or a
+    copy: the union of the trace's device intervals, their count by
+    category)."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    cats = {}
+    for e in device:
+        cats[e["cat"]] = cats.get(e["cat"], 0) + 1
+    return busy / 1e6 / wall_s, cats
+
+
+def phase_classify(torch, K, common, gl_bench, wgs):
+    """Phase 17: the classify kernel against its plain version on the
+    card → {N: its times and bound} for the kernel line. Its launches are
+    comparisons, not the main path, so ``K`` does not count them."""
+    import numpy as np
+
+    from svtyper_tpu_torch.evidence.device import classify_compact
+    from svtyper_tpu_torch.evidence.extract import VARS_BOOL
+    from svtyper_tpu_torch.gt.engine import TorchEngine, pack_wire
+    from svtyper_tpu_torch.ops.classify_kernel import (
+        classify_compact_cuda, unwire,
+    )
+    from svtyper_tpu_torch.utils import fixture
+
+    dev = torch.device("cuda", 0)
+    f32 = torch.float32
+    gl_kernel = K.gl_kernel
+    is_dup, force_null = (VARS_BOOL.index(k) for k in ("is_dup", "force_null"))
+
+    def wires(eng, bps):
+        """The engine's own prep of each chunk → (compact, wire, geom,
+        n_var) per chunk, the wire on the card as ``_launch`` sends it."""
+        for start in range(0, len(bps), eng.chunk_size):
+            (shards,) = eng._prepare(bps[start:start + eng.chunk_size])
+            (payload, n_var), = shards
+            check(payload[0] == "compact", "phase 17: a non-native chunk")
+            wire, geom = pack_wire(payload[1])
+            yield payload[1], eng._to_device(wire, dev), geom, n_var
+
+    def plain_step(eng, w, geom, n_var):
+        parts = unwire(w, geom)
+        counts = classify_compact(*parts, eng._dens_for(0, dev), n_var,
+                                  dtype=f32)
+        return gl_kernel.genotype_rows(counts, parts[6][is_dup],
+                                       parts[6][force_null])
+
+    bam, tiled, lib = wgs[:3]
+    cold_bam, cold_vcf = common.default_fixture(PREP_EVENTS)
+    max_err = 0.0
+    warm = None
+    for name, b, v, li in (("wgs30 tiled, warm", bam, tiled, lib),
+                           ("%d distinct events, cold" % PREP_EVENTS,
+                            cold_bam, cold_vcf, None)):
+        sample, bps = fixture.load_sample_and_breakpoints(b, v, lib_info=li)
+        if warm is None:
+            warm = sample, bps
+        eng = TorchEngine([sample], device=dev)
+        dens = eng._dens_for(0, dev)
+        n_chunks = reads = pairs = 0
+        for compact, w, geom, n_var in wires(eng, bps):
+            got = classify_compact_cuda(w, geom, dens, n_var)
+            want = classify_compact(*unwire(w, geom), dens, n_var, dtype=f32)
+            check(same_bits(got, want), "phase 17: %s, chunk %d: the "
+                  "kernel's counts differ from the plain version's in %d "
+                  "variants" % (name, n_chunks,
+                                int((got != want).any(dim=1).sum())))
+            max_err = max(max_err, float((got - want).abs().max()))
+            check(same_bits(eng._step(w, geom, 0, n_var),
+                            plain_step(eng, w, geom, n_var)),
+                  "phase 17: %s, chunk %d: the engine's step rows differ "
+                  "from the plain path's" % (name, n_chunks))
+            n_chunks += 1
+            reads += int((compact["cr_u16"] < n_var).sum())
+            pairs += int((compact["cp_u16"] < n_var).sum())
+        eng.close()
+        check(n_chunks == -(-len(bps) // CHUNK), "phase 17: %d chunks"
+              % n_chunks)
+        log("phase 17: %s: %d chunks of %d (%d reads, %d pairs): the "
+            "kernel's counts bit-identical to unwire -> classify_compact's "
+            "and the engine's step rows to the plain path's"
+            % (name, n_chunks, CHUNK, reads, pairs))
+
+    sample, bps = warm
+    times = {}
+    for n in CLASSIFY_SIZES:
+        eng = TorchEngine([sample], device=dev, chunk_size=n)
+        dens = eng._dens_for(0, dev)
+        compact, w, geom, n_var = next(wires(eng, bps))
+        torch.cuda.synchronize()
+        fns = {
+            "kernel": lambda: classify_compact_cuda(w, geom, dens, n_var),
+            "plain": lambda: classify_compact(*unwire(w, geom), dens, n_var,
+                                              dtype=f32),
+            "step": lambda: eng._step(w, geom, 0, n_var),
+            "plain step": lambda: plain_step(eng, w, geom, n_var),
+        }
+        res = {"n": n, "wire_bytes": int(w.numel()),
+               "reads": int((compact["cr_u16"] < n_var).sum()),
+               "pairs": int((compact["cp_u16"] < n_var).sum()),
+               # one thread walks each segment: the longest sets the time
+               "longest_segment": [int(np.bincount(
+                   compact[k][0], minlength=n_var + 1)[:n_var].max())
+                   for k in ("cr_u16", "cp_u16")],
+               "device_ms": gl_bench.graph_ms(fns["kernel"]),
+               "call_ms": gl_bench.time_ms(fns["kernel"]),
+               "plain_ms": gl_bench.time_ms(fns["plain"])}
+        res["bound_ms"], res["bound_by"], res["bound_bytes"] = \
+            classify_bound(gl_bench, compact, n_var, dens)
+        res["bound_share"] = res["bound_ms"] / res["device_ms"]
+        turns = {}
+        for name in ("kernel", "plain", "plain", "kernel",
+                     "step", "plain step", "plain step", "step"):
+            turns.setdefault(name, []).append(
+                device_ms(torch, fns[name], FULL_REPS))
+        res["events_ms"] = {k: [t[0] for t in v] for k, v in turns.items()}
+        res["enqueue_ms"] = {k: [t[1] for t in v] for k, v in turns.items()}
+        eng.close()
+        times[n] = res
+        log("phase 17: %s" % json.dumps(res))
+        log("phase 17: N=%d (%d reads, %d pairs, %d wire bytes, longest "
+            "segments %d reads and %d pairs): kernel "
+            "device %.6f ms (CUDA graph), call %.6f ms, plain %.6f ms; bound "
+            "%.6f ms (%s, %d B), %.4f of it; per shard per chunk, CUDA events "
+            "(host enqueue) in turns: kernel %s, plain %s; engine step %s, "
+            "plain step %s" % (
+                n, res["reads"], res["pairs"], res["wire_bytes"],
+                *res["longest_segment"], res["device_ms"], res["call_ms"],
+                res["plain_ms"],
+                res["bound_ms"], res["bound_by"], res["bound_bytes"],
+                res["bound_share"],
+                *(" / ".join("%.6f (%.6f)" % (e, h) for e, h in zip(
+                    res["events_ms"][k], res["enqueue_ms"][k]))
+                  for k in ("kernel", "plain", "step", "plain step"))))
+
+    # the engine's device profile over phase 5's records: per chunk H2D,
+    # step and D2H by CUDA events, then the busy share of a stream pass
+    eng = TorchEngine([sample], device=dev)
+    per = {"h2d": [], "step": [], "d2h": []}
+    for start in range(0, len(bps), CHUNK):
+        (shards,) = eng._prepare(bps[start:start + CHUNK])
+        (payload, n_var), = shards
+        wire, geom = pack_wire(payload[1])
+        pinned = torch.from_numpy(wire).pin_memory()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        w = pinned.to(dev, non_blocking=True)
+        ev[1].record()
+        rows = eng._step(w, geom, 0, n_var)
+        ev[2].record()
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        ev[3].record()
+        ev[3].synchronize()
+        for key, i in (("h2d", 0), ("step", 1), ("d2h", 2)):
+            per[key].append(ev[i].elapsed_time(ev[i + 1]))
+    med = {k: float(np.median(v)) for k, v in per.items()}
+    eng.genotype_all(bps[:CHUNK])  # warm
+    trace = os.path.join(WORK, "phase17_stream.trace.json")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        eng.genotype_all(bps)
+        wall = time.time() - t0
+    prof.export_chrome_trace(trace)
+    share, cats = busy_share(trace, wall)
+    st = eng.stats
+    eng.close()
+    log("phase 17: engine device profile over %d records (%d chunks of %d): "
+        "per chunk median ms (CUDA events) H2D %.6f, step %.6f, D2H %.6f; "
+        "profiled genotype_all %.6f s, device busy %.6f of it (device "
+        "intervals %s); prep %.6f s, send %.6f s, sync %.6f s"
+        % (len(bps), len(per["step"]), CHUNK, med["h2d"], med["step"],
+           med["d2h"], wall, share, json.dumps(cats), st["prep_s"],
+           st["send_s"], st["sync_s"]))
+    return max_err, times
 
 
 def main(argv=None) -> int:
@@ -1008,7 +1338,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from svtyper_tpu_torch.bamio import native
     from svtyper_tpu_torch.cli import classic
-    from svtyper_tpu_torch.ops import _build, gl_kernel
+    from svtyper_tpu_torch.ops import _build, classify_kernel, gl_kernel
     from svtyper_tpu_torch.tools import (
         bench, common, dump_chunk_args, gl_bench, make_example_data,
         profile_chunks, profile_prep, reference_parity, scaling_curve, soak,
@@ -1018,6 +1348,7 @@ def main(argv=None) -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
+    K = Launches(gl_kernel, classify_kernel)
     smi = common.nvidia_smi_line()
     log("phase 1: %s | torch %s, CUDA %s, %d device(s)"
         % (smi, torch.__version__, torch.version.cuda,
@@ -1028,44 +1359,48 @@ def main(argv=None) -> int:
         if not multi_card:
             max_err, times = phase_kernel(torch, gl_kernel, parity, gl_bench)
             golden_out = phase_golden(classic, parity)
-        wgs, launches = phase_slice(torch, classic, gl_kernel, fixture)
+        wgs = phase_slice(torch, classic, K, fixture)
         if not multi_card:
             # after phase 5's timed CLI runs, so it takes no core from them
             sims.append(start_bench_fixtures())
-        launches += phase_multidevice(torch, classic, gl_kernel, wgs)
-        launches += phase_multihost(torch, wgs)
+        phase_multidevice(torch, classic, K, wgs)
+        phase_multihost(torch, K, wgs)
         if not multi_card:
-            launches += phase_profile(classic, gl_kernel, golden_out)
-            launches += phase_chunk_sweep(gl_kernel, profile_chunks, wgs)
-        launches += phase_scaling(torch, gl_kernel, scaling_curve, wgs)
+            phase_profile(classic, K, golden_out)
+            phase_chunk_sweep(K, profile_chunks, wgs)
+        phase_scaling(torch, K, scaling_curve, wgs)
         if not multi_card:
-            launches += phase_soak(gl_kernel, soak, WGS_VCF, wgs[0])
-            launches += phase_dump(gl_kernel, dump_chunk_args, wgs)
-        launches += phase_full_column(torch, gl_kernel, wgs)
-        phase_prep(torch, gl_kernel, common, profile_prep, wgs, sims[0])
+            phase_soak(K, soak, WGS_VCF, wgs[0])
+            phase_dump(K, dump_chunk_args, wgs)
+        phase_full_column(torch, K, wgs)
+        phase_prep(torch, K, common, profile_prep, wgs, sims[0])
         if not multi_card:
-            launches += phase_entry_points(gl_kernel, reference_parity,
-                                           make_example_data, golden_out)
-            launches += phase_bench(gl_kernel, common, bench, sims[1])
+            phase_entry_points(K, reference_parity, make_example_data,
+                               golden_out)
+            phase_bench(K, common, bench, sims[1])
+            cls_err, cls_times = phase_classify(torch, K, common, gl_bench,
+                                                wgs)
     finally:
         stop_children(sims)
     check("jax" not in sys.modules, "jax was imported")
     check("svtyper_tpu" not in sys.modules, "svtyper_tpu was imported")
     if multi_card:
-        log("multi-card: phases 5-7, 10, 13 and 14 ok on %d cards, %d GL "
-            "launches"
-            % (torch.cuda.device_count(), launches))
+        log("multi-card: phases 5-7, 10, 13 and 14 ok on %d cards, %d "
+            "classify and %d GL launches"
+            % (torch.cuda.device_count(), K.total["classify"],
+               K.total["gl"]))
         log(smi)
         log(json.dumps(result_line(torch)))
         return 0
 
     t = times[CHUNK]
+    c = cls_times[CHUNK]
     kernels = [{
         "name": "gl_rows",
         "route": "cuda",
         "source": "svtyper_tpu_torch/csrc/gl_kernel.cu",
         "replaces": "svtyper_tpu/ops/pallas_gl.py:164",
-        "launches": launches,
+        "launches": K.total["gl"],
         "max_abs_err": max_err,
         "ms": t["kernel_call_ms"],
         "device_ms": t["kernel_device_ms"],
@@ -1075,10 +1410,30 @@ def main(argv=None) -> int:
         "bound_share": t["bound_share"],
         # no single PyTorch call computes the GL stage
         "library_ms": None,
+    }, {
+        "name": "classify_compact",
+        "route": "cuda",
+        "source": "svtyper_tpu_torch/csrc/classify_kernel.cu",
+        # no Pallas original: what XLA compiles from this function inside
+        # jit(step_wire), svtyper_tpu/gt/engine.py:298
+        "replaces": "svtyper_tpu/evidence/device.py:27",
+        "launches": K.total["classify"],
+        "max_abs_err": cls_err,
+        "ms": c["call_ms"],
+        "device_ms": c["device_ms"],
+        "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "bound_share": c["bound_share"],
+        # no single PyTorch call computes classify_compact
+        "library_ms": None,
     }]
     check(all(math.isfinite(v) for v in (
         max_err, t["kernel_call_ms"], t["kernel_device_ms"], t["twin_ms"],
-        t["bound_share"])), "non-finite kernel numbers")
+        t["bound_share"], cls_err, c["call_ms"], c["device_ms"],
+        c["plain_ms"], c["bound_share"])), "non-finite kernel numbers")
+    check(K.total["classify"] > 0 and K.total["gl"] > 0,
+          "a kernel of the main path never ran: %s" % K.total)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps(result_line(torch)))

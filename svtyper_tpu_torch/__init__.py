@@ -12,7 +12,9 @@ the device half is:
 
 - ``ops``       the GL stage: ``gl`` (torch, both float branches) and
                 ``gl_kernel`` (the hand-written CUDA kernel for Hopper
-                and its plain twin); ``csrc/`` holds the CUDA source.
+                and its plain twin); ``classify_kernel``, the engine's
+                classifier on the wire (a CUDA kernel beside its plain
+                version); ``csrc/`` holds the CUDA sources.
 - ``evidence``  ``classify_compact``: compact wire → ``[N,5]`` counts.
 - ``gt``        ``TorchEngine``, the chunked streaming engine, sharded
                 over one or more devices.

@@ -867,7 +867,8 @@ def _write_stats(engine, n_done, t_gt, t0, t_first, gather_s) -> None:
     adds sample bootstrap; n_done counts emitted records (replayed
     checkpoint chunks included, 0 on a multihost rank that writes
     nothing); gather_s is the time in the multihost all-gather; the
-    engine's stats add gl_launches, its CUDA GL kernel launches."""
+    engine's stats add classify_launches and gl_launches, its CUDA
+    classify and GL kernel launches."""
     stats_path = os.environ.get("SVT_CLI_STATS")
     if not stats_path:
         return
@@ -887,7 +888,7 @@ def _write_stats(engine, n_done, t_gt, t0, t_first, gather_s) -> None:
         payload.update(
             {k: engine.stats[k]
              for k in ("prep_s", "send_s", "sync_s", "reads", "pairs",
-                       "chunks", "gl_launches")}
+                       "chunks", "classify_launches", "gl_launches")}
         )
     payload["native_perf"] = perf_counters()
     with open(stats_path, "w") as fh:

@@ -4,16 +4,18 @@ Counterpart of ``svtyper_tpu.gt.engine.TpuEngine``. The host prepares
 each chunk's compact wire (native ``svt_fetch_chunk`` through
 ``evidence/extract.py``), one per device shard, ships each as
 ONE uint8 buffer and one host-to-device copy, and one device step per
-shard runs unwire → ``classify_compact`` → the GL stage, producing the
-packed ``[N,24]`` rows that ``cli/fast_emit.py`` formats. Where the JAX
+shard runs the classifier on the wire and then the GL stage, producing
+the packed ``[N,24]`` rows that ``cli/fast_emit.py`` formats: on CUDA
+two launches, the hand-written classify and GL kernels of
+``ops/classify_kernel.py`` and ``ops/gl_kernel.py``. Where the JAX
 engine runs one ``shard_map`` program over rectangular blocks, each
 shard here has its own wire geometry and step; their rows are
 concatenated in shard order.
 
-Float dtype: float64 on the CPU (oracle parity, ``ops/gl.py``'s f64
-branch) and float32 on CUDA, where the GL stage is the hand-written
-kernel of ``ops/gl_kernel.py``. ``dtype=torch.float32`` on the CPU runs
-that kernel's plain twin instead.
+Float dtype: float64 on the CPU (oracle parity: ``unwire`` →
+``classify_compact`` → ``ops/gl.py``'s f64 branch) and float32 on CUDA.
+``dtype=torch.float32`` on the CPU runs both kernels' plain versions
+instead.
 
 The row layout helpers (``INT_FIELDS`` … ``row_to_result``,
 ``pack_wire``, ``_repad_compact``) are jax-free copies of the JAX
@@ -44,9 +46,9 @@ from svtyper_tpu_torch.evidence.extract import (
 )
 from svtyper_tpu_torch.models.bayes import GT_STRINGS, GenotypeResult
 from svtyper_tpu_torch.stats.library import Sample
-from svtyper_tpu_torch.evidence.device import classify_compact
 from svtyper_tpu_torch.ops.gl import genotype_batch, log_choose_table
-from svtyper_tpu_torch.ops import gl_kernel
+from svtyper_tpu_torch.ops import classify_kernel, gl_kernel
+from svtyper_tpu_torch.ops.classify_kernel import classify_wire, wire_rows
 
 MAX_N_TABLE = 1 << 17  # log-choose table span; QR+QA beyond this clamps
 
@@ -100,39 +102,7 @@ _NI = len(INT_FIELDS)
 ROW_WIDTH = _NI + 10  # int fields + (gl0 gl1 gl2 sq ab c0..c4)
 
 _IB = {name: i for i, name in enumerate(VARS_BOOL)}
-
-# wire dtypes → torch views. uint16 is viewed as int16 and widened
-# with a 0xFFFF mask (unsigned 16-bit ops are sparse on CUDA).
-_VIEW = {
-    np.dtype(np.uint8): torch.uint8,
-    np.dtype(np.int8): torch.int8,
-    np.dtype(np.int16): torch.int16,
-    np.dtype(np.uint16): torch.int16,
-    np.dtype(np.int32): torch.int32,
-    np.dtype(np.int64): torch.int64,
-}
-
-
-def unwire(wire: torch.Tensor, geom) -> List[torch.Tensor]:
-    """One uint8 wire buffer → the seven packed matrices, as typed views
-    of the buffer (uint16 matrices come back widened to int32)."""
-    if wire.storage_offset() != 0:
-        raise ValueError("the wire must start at its storage's first byte")
-    parts = []
-    off = 0
-    for dt_str, shape in geom:
-        dt = np.dtype(dt_str)
-        nb = int(np.prod(shape)) * dt.itemsize
-        if off % dt.itemsize:
-            raise ValueError(
-                "wire slice at byte %d is not aligned to %s" % (off, dt)
-            )
-        arr = wire[off: off + nb].view(_VIEW[dt])
-        if dt == np.uint16:
-            arr = arr.to(torch.int32) & 0xFFFF
-        parts.append(arr.reshape(shape))
-        off += nb
-    return parts
+_V_U8 = COMPACT_KEYS.index("v_u8")
 
 
 def dens_state(dens_np: np.ndarray, device, dtype) -> torch.Tensor:
@@ -248,8 +218,9 @@ class TorchEngine:
         self.evidence_sink = None
         self._prep_workers = prep_workers  # None = env/auto
         # per-stage wall-time observability (SURVEY.md §5); chunks
-        # counts engine chunks, not shards; gl_launches counts the CUDA
-        # GL kernel's launches (one per shard of every chunk on the card)
+        # counts engine chunks, not shards; classify_launches and
+        # gl_launches count the CUDA classify and GL kernels' launches
+        # (each one per shard of every chunk on the card)
         self.stats = {
             "prep_s": 0.0,   # host: fetch + layout (prep thread)
             "send_s": 0.0,   # host→device copy + step launches
@@ -258,17 +229,20 @@ class TorchEngine:
             "pairs": 0,
             "chunks": 0,
             "variants": 0,
+            "classify_launches": 0,
             "gl_launches": 0,
         }
 
     def _step(self, wire: torch.Tensor, geom, si: int, n_var: int):
-        """The device step on the wire's device: unwire →
-        classify_compact → GL → [n_var,24]."""
-        cr16, cr8, cp16, cp32, cp8, v32, v8 = unwire(wire, geom)
-        counts = classify_compact(
-            cr16, cr8, cp16, cp32, cp8, v32, v8,
-            self._dens_for(si, wire.device), n_var, dtype=self.dtype,
+        """The device step on the wire's device → [n_var,24]: the
+        classifier on the wire (on CUDA the classify kernel reads it in
+        place; on the CPU ``unwire`` → ``classify_compact``), then GL."""
+        before = classify_kernel.LAUNCHES
+        counts = classify_wire(
+            wire, geom, self._dens_for(si, wire.device), n_var, self.dtype
         )
+        self.stats["classify_launches"] += classify_kernel.LAUNCHES - before
+        v8 = wire_rows(wire, geom, _V_U8)
         is_dup = v8[_IB["is_dup"]]
         force_null = v8[_IB["force_null"]]
         if self.dtype == torch.float32:

@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_locks = {}  # one lock per library: two libraries build side by side
 _libs = {}
 
 
@@ -70,6 +71,8 @@ def build(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))

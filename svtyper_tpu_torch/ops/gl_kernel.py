@@ -160,8 +160,8 @@ def _check(name, t, dtype, shape, device, align=1):
     if not t.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
     if t.data_ptr() % align:
-        raise ValueError("%s must start at a %d-byte boundary (the kernel "
-                         "moves it as float4)" % (name, align))
+        raise ValueError("%s must start at a %d-byte boundary"
+                         % (name, align))
 
 
 @functools.lru_cache(maxsize=1)

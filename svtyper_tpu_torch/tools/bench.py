@@ -412,7 +412,7 @@ def check_cold(perf: dict) -> None:
 
 def _timed(engine, passes, row, fn):
     """``fn()`` with the engine's stats zeroed → (result, seconds, stats);
-    the pass's chunks and GL launches join ``passes``."""
+    the pass's chunks and classify and GL launches join ``passes``."""
     for key in engine.stats:
         engine.stats[key] = 0
     t0 = time.time()
@@ -420,6 +420,7 @@ def _timed(engine, passes, row, fn):
     dt = time.time() - t0
     st = dict(engine.stats)
     passes.append({"row": row, "chunks": st["chunks"],
+                   "classify_launches": st["classify_launches"],
                    "gl_launches": st["gl_launches"], "shards": engine.n_dev,
                    "samples": len(engine.samples)})
     return out, dt, st
@@ -646,6 +647,8 @@ def run(device=None, emit=common.print_json, **given) -> dict:
         "engine_passes": passes,
         "cli_runs": len(cli_runs),
         "cli_chunks": sum(r["chunks"] for r in cli_runs),
+        "cli_classify_launches": sum(r["classify_launches"]
+                                     for r in cli_runs),
         "cli_gl_launches": sum(r["gl_launches"] for r in cli_runs),
         "fixture_build_s": fixture_s,
         "run_s": time.time() - t_run,

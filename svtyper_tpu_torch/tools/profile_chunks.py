@@ -4,10 +4,10 @@ Counterpart of ``scripts/profile_tpu.py``. For each chunk size: one
 first call on one chunk (timed; on the TPU it held the compile), then
 three ``genotype_all`` runs over every record, each with the engine's
 stats zeroed, reporting variants/s, ``prep_s``, ``send_s``, ``sync_s``,
-``chunks`` and ``gl_launches``. The integer fields of the results must
-be identical across chunk sizes, the chunk count must be
-ceil(records / chunk size), and on CUDA the GL kernel must run once per
-chunk. The engine runs on one device.
+``chunks``, ``classify_launches`` and ``gl_launches``. The integer
+fields of the results must be identical across chunk sizes, the chunk
+count must be ceil(records / chunk size), and on CUDA the classify and
+GL kernels must each run once per chunk. The engine runs on one device.
 
     python -m svtyper_tpu_torch.tools.profile_chunks [chunk ...]   # 1024 2048 4096
 
@@ -31,7 +31,8 @@ from svtyper_tpu_torch.utils import fixture
 SIZES = (1024, 2048, 4096)
 REPS = 3
 N_EVENTS = 1600
-STAT_KEYS = ("prep_s", "send_s", "sync_s", "chunks", "gl_launches")
+STAT_KEYS = ("prep_s", "send_s", "sync_s", "chunks", "classify_launches",
+             "gl_launches")
 
 
 def result_rows(results) -> np.ndarray:
@@ -73,9 +74,12 @@ def run(
             common.check(st["chunks"] == want_chunks, "chunk %d: %d chunks "
                          "for %d records" % (cs, st["chunks"], n))
             if common.is_cuda(device):
-                common.check(st["gl_launches"] == want_chunks,
-                             "chunk %d: %d GL launches for %d chunks"
-                             % (cs, st["gl_launches"], want_chunks))
+                common.check(
+                    st["classify_launches"] == st["gl_launches"]
+                    == want_chunks,
+                    "chunk %d: %d classify and %d GL launches for %d chunks"
+                    % (cs, st["classify_launches"], st["gl_launches"],
+                       want_chunks))
         engine.close()
         rows = result_rows(res)
         if first_rows is None:

@@ -183,7 +183,8 @@ def _native_pass(sample, bps, cs, devices):
     st = engine.stats
     common.check(st["chunks"] == len(chunks), "chunk %d: %d chunks prepped "
                  "for %d" % (cs, st["chunks"], len(chunks)))
-    common.check(st["gl_launches"] == 0, "the device step ran")
+    common.check(st["classify_launches"] == st["gl_launches"] == 0,
+                 "the device step ran")
     wall_s = sum(r["wall_ms"] for r in per_chunk) / 1e3
     med, p90 = _quantiles(per_chunk, ("wall_ms",) + PARTS)
     return {

@@ -162,9 +162,10 @@ def run_ours(flavour: str, device: str, vcf: str, bam: str, out: str,
         os.environ.pop("SVT_CLI_STATS", None)
     with open(stats) as fh:
         st = json.load(fh)
-    common.check(st["gl_launches"] == st["chunks"] > 0,
-                 "%s: %d GL launches for %d chunks"
-                 % (out, st["gl_launches"], st["chunks"]))
+    common.check(st["classify_launches"] == st["gl_launches"] == st["chunks"]
+                 > 0, "%s: %d classify and %d GL launches for %d chunks"
+                 % (out, st["classify_launches"], st["gl_launches"],
+                    st["chunks"]))
     return {"rc": rc, "chunks": st["chunks"], "gl_launches": st["gl_launches"]}
 
 

@@ -252,6 +252,7 @@ def soak_cli(
            "total_wall_s": st["total_wall_s"], "prep_s": st["prep_s"],
            "send_s": st["send_s"], "sync_s": st["sync_s"],
            "chunks": st["chunks"], "gl_launches": st["gl_launches"],
+           "classify_launches": st["classify_launches"],
            "rss_samples": len(rss)}
     # the RSS series starts at the first chunk written (imports, library
     # scan and the first use of a card lie before it); of both series

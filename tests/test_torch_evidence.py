@@ -28,7 +28,8 @@ from svtyper_tpu_torch.evidence.device import (
     _sorted_segment_sum,
     classify_compact,
 )
-from svtyper_tpu_torch.gt.engine import pack_wire, unwire
+from svtyper_tpu_torch.gt.engine import pack_wire
+from svtyper_tpu_torch.ops.classify_kernel import unwire
 
 DTYPES = {"f64": (torch.float64, jnp.float64), "f32": (torch.float32, jnp.float32)}
 
