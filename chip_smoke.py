@@ -16,7 +16,8 @@ non-zero:
    ``csrc/classify_kernel.cu`` with one nvcc each and the port's own
    native BAM decoder (``bamio/_native/bamcore.cpp``, make and g++),
    each into ``build/svtyper_tpu_torch/``, then loads all three (no
-   pure-Python fallback);
+   pure-Python fallback) and logs each kernel's registers, shared
+   memory and spills (``-Xptxas -v``);
 3. kernel against its plain twin, on the card, on the random and
    adversarial GL grids at every ``GRID_SIZES`` N (some below, some not
    a multiple of, the kernel's 32-variant tile): the 14 integer fields
@@ -98,9 +99,12 @@ non-zero:
     every engine pass must launch the GL kernel once per chunk, shard
     and sample (the CLI row once per chunk and shard);
 17. the classify kernel (``csrc/classify_kernel.cu``) against its plain
-    version on the card, on every chunk of phase 5's records (21 x
-    1,024, warm) and of phase 14's 1,600 distinct events (cold): counts
-    bit-identical to ``unwire`` → ``classify_compact``'s, and the
+    version on the card, on the CPU tests' adversarial and edge chunks
+    (``utils/parity.py``: every branch, empty segments, segments of 1,
+    31-33, 63-65 and 2,049 rows off the tile's alignment, 1, 3 and 5
+    variants, padding rows only), on every chunk of phase 5's records
+    (21 x 1,024, warm) and of phase 14's 1,600 distinct events (cold):
+    counts bit-identical to ``unwire`` → ``classify_compact``'s, and the
     engine's ``_step`` rows bit-identical to the plain path's
     (``unwire`` → ``classify_compact`` → the GL kernel); at N = 1,024
     and 4,096 the kernel's device ms (CUDA-graph replay) and call ms
@@ -176,11 +180,6 @@ BENCH_BND_EVENTS = 300  # phase 16's rows; the main row is phase 14's fixture
 BENCH_MS_VARIANTS = 400
 BENCH_CLI_VARIANTS = N_RECORDS
 CLASSIFY_SIZES = (1024, 4096)  # phase 17's timed chunk sizes
-# phase 17's bound: operations per read and per pair row, counted from
-# csrc/classify_kernel.cu's loop bodies (each add, multiply, divide,
-# compare and select one); the bytes bound the kernel ~8x above them
-READ_ROW_OPS = 13
-PAIR_ROW_OPS = 26
 
 
 class _RefuseJax:
@@ -271,6 +270,11 @@ def phase_build(_build, native):
         % (", ".join("%s in %.2f s" % (_build.build(k), t)
                      for k, t in zip(kernels, k_s)),
            " ".join(_build.NVCC_FLAGS), native._SO, d_s, time.time() - t0))
+    for k in kernels:
+        report = _build.PTXAS.get(_build.build(k))
+        log("phase 2: ptxas -v, %s: %s" % (
+            k, "not rebuilt in this process" if report is None
+            else " | ".join(report)))
 
 
 def phase_kernel(torch, gl_kernel, parity, gl_bench):
@@ -1088,44 +1092,6 @@ def phase_bench(K, common, bench, sim):
             res["run_s"]))
 
 
-def classify_bound(gl_bench, compact, n_var, dens):
-    """→ (least ms the card could take for the classifier on this chunk,
-    "bytes" or "operations", the bytes it must move). The bytes: 5 B of
-    each read row of a variant (variant, mapq, sa_mapq, flags), 10 B of
-    each pair row of a variant (variant, ospan, two mapqs, lib, flags),
-    5 B of each variant (vlen, is_del), each distinct density entry the
-    pairs look up and the 1 KiB prob_mapq table once, and 20 B of counts
-    per variant written, over the card's memory rate. Padding rows and
-    the wire's rows the kernel does not read are left out. The
-    operations: the rows' over its float32 rate. The larger wins."""
-    import numpy as np
-
-    from svtyper_tpu_torch.evidence.extract import LIB_INVALID, VARS_I32
-
-    n_lib, width = dens.shape
-    reads = int((compact["cr_u16"][0] < n_var).sum())
-    pv = compact["cp_u16"][0]
-    real = pv < n_var
-    pairs = int(real.sum())
-    ospan = compact["cp_i32"][0][real]
-    vlen = compact["v_i32"][VARS_I32.index("vlen")][pv[real]]
-    lib = compact["cp_u8"][2][real]
-    # the kernel's row of dens: lib clamped to [0, n_lib), LIB_INVALID none
-    row = np.minimum(lib.astype(np.int64), n_lib - 1)
-    entries = []
-    for x in (ospan, np.subtract(ospan, vlen, dtype=np.int32)):
-        ok = (x >= 0) & (x < width) & (lib != LIB_INVALID)
-        entries.append(row[ok] * width + x[ok])
-    distinct = len(np.unique(np.concatenate(entries)))
-    nbytes = 5 * reads + 10 * pairs + 25 * n_var + 4 * distinct + 4 * 256
-    by_bytes = nbytes / gl_bench.PEAK_BYTES_S * 1e3
-    by_ops = ((READ_ROW_OPS * reads + PAIR_ROW_OPS * pairs)
-              / gl_bench.PEAK_F32_S * 1e3)
-    if by_bytes >= by_ops:
-        return by_bytes, "bytes", nbytes
-    return by_ops, "operations", nbytes
-
-
 def busy_share(trace_path, wall_s):
     """→ (the share of ``wall_s`` in which the card ran a kernel or a
     copy: the union of the trace's device intervals, their count by
@@ -1149,10 +1115,11 @@ def busy_share(trace_path, wall_s):
     return busy / 1e6 / wall_s, cats
 
 
-def phase_classify(torch, K, common, gl_bench, wgs):
+def phase_classify(torch, K, common, gl_bench, classify_bench, wgs):
     """Phase 17: the classify kernel against its plain version on the
-    card → {N: its times and bound} for the kernel line. Its launches are
-    comparisons, not the main path, so ``K`` does not count them."""
+    card → (max abs error, {N: its times and bound}) for the kernel line.
+    Its launches are comparisons, not the main path, so ``K`` does not
+    count them."""
     import numpy as np
 
     from svtyper_tpu_torch.evidence.device import classify_compact
@@ -1161,22 +1128,38 @@ def phase_classify(torch, K, common, gl_bench, wgs):
     from svtyper_tpu_torch.ops.classify_kernel import (
         classify_compact_cuda, unwire,
     )
-    from svtyper_tpu_torch.utils import fixture
+    from svtyper_tpu_torch.utils import fixture, parity
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
     gl_kernel = K.gl_kernel
     is_dup, force_null = (VARS_BOOL.index(k) for k in ("is_dup", "force_null"))
 
-    def wires(eng, bps):
-        """The engine's own prep of each chunk → (compact, wire, geom,
-        n_var) per chunk, the wire on the card as ``_launch`` sends it."""
-        for start in range(0, len(bps), eng.chunk_size):
-            (shards,) = eng._prepare(bps[start:start + eng.chunk_size])
-            (payload, n_var), = shards
-            check(payload[0] == "compact", "phase 17: a non-native chunk")
-            wire, geom = pack_wire(payload[1])
-            yield payload[1], eng._to_device(wire, dev), geom, n_var
+    def held(name, w, geom, dens, n_var):
+        """The kernel's counts bit-identical to the plain version's →
+        their max abs difference (0)."""
+        got = classify_compact_cuda(w, geom, dens, n_var)
+        want = classify_compact(*unwire(w, geom), dens, n_var, dtype=f32)
+        check(same_bits(got, want), "phase 17: %s: the kernel's counts "
+              "differ from the plain version's in %d variants"
+              % (name, int((got != want).any(dim=1).sum())))
+        return float((got - want).abs().max())
+
+    # the branch and segment-edge chunks of the CPU tests
+    chunks = [("adversarial", *parity.adversarial_compact()),
+              ("adversarial, 1,024 variants", *parity.adversarial_compact(
+                  seed=4, n_var=1024, n_reads=40_000, n_pairs=20_000,
+                  width=1024))]
+    chunks += [("edge: " + name, c, d, n) for name, c, d, n
+               in parity.edge_compacts()]
+    max_err = 0.0
+    for name, compact, dens, n_var in chunks:
+        wire, geom = pack_wire(compact)
+        max_err = max(max_err, held(name, torch.from_numpy(wire).to(dev),
+                                    geom, torch.from_numpy(dens).to(dev),
+                                    n_var))
+    log("phase 17: %s: the kernel's counts bit-identical to unwire -> "
+        "classify_compact's" % ", ".join(c[0] for c in chunks))
 
     def plain_step(eng, w, geom, n_var):
         parts = unwire(w, geom)
@@ -1187,7 +1170,6 @@ def phase_classify(torch, K, common, gl_bench, wgs):
 
     bam, tiled, lib = wgs[:3]
     cold_bam, cold_vcf = common.default_fixture(PREP_EVENTS)
-    max_err = 0.0
     warm = None
     for name, b, v, li in (("wgs30 tiled, warm", bam, tiled, lib),
                            ("%d distinct events, cold" % PREP_EVENTS,
@@ -1198,14 +1180,9 @@ def phase_classify(torch, K, common, gl_bench, wgs):
         eng = TorchEngine([sample], device=dev)
         dens = eng._dens_for(0, dev)
         n_chunks = reads = pairs = 0
-        for compact, w, geom, n_var in wires(eng, bps):
-            got = classify_compact_cuda(w, geom, dens, n_var)
-            want = classify_compact(*unwire(w, geom), dens, n_var, dtype=f32)
-            check(same_bits(got, want), "phase 17: %s, chunk %d: the "
-                  "kernel's counts differ from the plain version's in %d "
-                  "variants" % (name, n_chunks,
-                                int((got != want).any(dim=1).sum())))
-            max_err = max(max_err, float((got - want).abs().max()))
+        for compact, w, geom, n_var in classify_bench.wires(eng, bps, dev):
+            max_err = max(max_err, held("%s, chunk %d" % (name, n_chunks),
+                                        w, geom, dens, n_var))
             check(same_bits(eng._step(w, geom, 0, n_var),
                             plain_step(eng, w, geom, n_var)),
                   "phase 17: %s, chunk %d: the engine's step rows differ "
@@ -1226,7 +1203,7 @@ def phase_classify(torch, K, common, gl_bench, wgs):
     for n in CLASSIFY_SIZES:
         eng = TorchEngine([sample], device=dev, chunk_size=n)
         dens = eng._dens_for(0, dev)
-        compact, w, geom, n_var = next(wires(eng, bps))
+        compact, w, geom, n_var = next(classify_bench.wires(eng, bps, dev))
         torch.cuda.synchronize()
         fns = {
             "kernel": lambda: classify_compact_cuda(w, geom, dens, n_var),
@@ -1235,18 +1212,14 @@ def phase_classify(torch, K, common, gl_bench, wgs):
             "step": lambda: eng._step(w, geom, 0, n_var),
             "plain step": lambda: plain_step(eng, w, geom, n_var),
         }
+        # a warp walks each segment: the longest sets the tail
         res = {"n": n, "wire_bytes": int(w.numel()),
-               "reads": int((compact["cr_u16"] < n_var).sum()),
-               "pairs": int((compact["cp_u16"] < n_var).sum()),
-               # one thread walks each segment: the longest sets the time
-               "longest_segment": [int(np.bincount(
-                   compact[k][0], minlength=n_var + 1)[:n_var].max())
-                   for k in ("cr_u16", "cp_u16")],
+               **classify_bench.chunk_stats(compact, n_var),
                "device_ms": gl_bench.graph_ms(fns["kernel"]),
                "call_ms": gl_bench.time_ms(fns["kernel"]),
                "plain_ms": gl_bench.time_ms(fns["plain"])}
         res["bound_ms"], res["bound_by"], res["bound_bytes"] = \
-            classify_bound(gl_bench, compact, n_var, dens)
+            classify_bench.bound(compact, n_var, dens)
         res["bound_share"] = res["bound_ms"] / res["device_ms"]
         turns = {}
         for name in ("kernel", "plain", "plain", "kernel",
@@ -1340,8 +1313,9 @@ def main(argv=None) -> int:
     from svtyper_tpu_torch.cli import classic
     from svtyper_tpu_torch.ops import _build, classify_kernel, gl_kernel
     from svtyper_tpu_torch.tools import (
-        bench, common, dump_chunk_args, gl_bench, make_example_data,
-        profile_chunks, profile_prep, reference_parity, scaling_curve, soak,
+        bench, classify_bench, common, dump_chunk_args, gl_bench,
+        make_example_data, profile_chunks, profile_prep, reference_parity,
+        scaling_curve, soak,
     )
     from svtyper_tpu_torch.utils import fixture, parity
 
@@ -1379,7 +1353,7 @@ def main(argv=None) -> int:
                                golden_out)
             phase_bench(K, common, bench, sims[1])
             cls_err, cls_times = phase_classify(torch, K, common, gl_bench,
-                                                wgs)
+                                                classify_bench, wgs)
     finally:
         stop_children(sims)
     check("jax" not in sys.modules, "jax was imported")

@@ -1,8 +1,9 @@
-// Evidence classification of the compact wire for Hopper (sm_90a): one
-// thread per variant segment, reading the shard's uint8 wire in place.
+// Evidence classification of the compact wire for Hopper (sm_90a): a
+// warp per variant segment of each table, reading the shard's uint8
+// wire in place.
 //
-// Replaces what XLA compiles inside jit(step_wire) of
-// svtyper_tpu/gt/engine.py from svtyper_tpu/evidence/device.py::
+// Replaces what XLA compiles inside jit(step_wire)
+// (svtyper_tpu/gt/engine.py:298) from svtyper_tpu/evidence/device.py:27
 // classify_compact (its segment sums at :73-74 and :118-119); there is
 // no Pallas original. It computes exactly the plain PyTorch function
 // svtyper_tpu_torch/evidence/device.py::classify_compact, in the same
@@ -21,33 +22,55 @@
 // Every product, sum and quotient is an __f*_rn intrinsic, which never
 // contracts, and the file is built with -fmad=false (ops/_build.py).
 // The prob_mapq table is the plain version's own float32 table, passed
-// in device memory, never recomputed with powf.
+// in device memory and staged in shared memory by each block.
 //
 // The wire (gt/engine.py::pack_wire) holds seven matrices back to back:
-// cr_u16 [1,R] (read → variant, ascending, padding rows at n_var),
+// cr_u16 [1,R] (read -> variant, ascending, padding rows at n_var),
 // cr_u8 [3,R] (mapq, sa_mapq, flags), cp_u16 [1,F], cp_i32 [1,F]
 // (ospan), cp_u8 [4,F] (a_mapq, b_mapq, lib, flags), v_i32 [9,V]
 // (vlen is row 8), v_u8 [6,V] (is_del is row 2). The wrapper
 // (ops/classify_kernel.py) passes the byte offset of each and checks
-// their alignment. Thread v finds its first and last rows by binary
-// search over the sorted variant columns, so no searchsorted launch is
-// needed, and skips the padding rows of the trash segment at n_var.
+// their alignment.
 //
 // What bounds it. It must read what it uses of the wire once (5 B a read
 // row, 10 B a pair row, 5 B a variant: vlen and is_del), each distinct
 // density entry the pairs look up and the 1 KiB table once, and write
 // 20 B a variant: ~2.1 MB for a 1,024-variant chunk of a 30x sample
 // (~50 reads and ~175 pairs a variant), under 1 us at 3.35 TB/s
-// (chip_smoke.py's classify_bound). Its arithmetic (a dozen or two
-// operations a row) is far below the float32 rate. What decides its
-// time is the walk of the longest segment: one thread adds its rows one
-// after the other, each row a global load and a density lookup that
-// depends on it, after four binary searches of dependent loads. On one
-// H100 (700 W) it takes ~0.13 ms for a 30x chunk whose longest segment
-// is 317 pairs, at N = 1,024 as at 4,096 (chip_smoke.py phase 17). A
-// warp per segment with coalesced loads and an in-order sum of the
-// lanes' values is the next step; tensor cores, TMA and shared-memory
-// tiles have no place in a gather this small.
+// (tools/classify_bench.py::bound). Its arithmetic, a dozen or two
+// operations a row, is far below the float32 rate. The first version
+// (one thread per variant) walked each segment's rows one after the
+// other, so the longest segment (317 pairs) set its time at ~0.13 ms.
+//
+// The design spreads the rows over lanes and SMs and keeps the order of
+// the sums:
+//
+// - a warp per (variant, table): warp 2v walks variant v's read rows,
+//   warp 2v+1 its pair rows; 4 warps a block, so a 1,024-variant chunk
+//   runs 512 blocks over the 132 SMs;
+// - the warp finds the segment's first row by a 32-ary search (each
+//   round the lanes probe 32 evenly spaced rows and a ballot keeps the
+//   stretch ~32x narrower), equal to torch.searchsorted(side="left"),
+//   and finds the end during the walk: the walk stops at the first tile
+//   whose rows are not all variant v, so it never adds a padding row of
+//   the trash segment at n_var;
+// - tiles of 32 rows: lane l loads row start + 32t + l of each column it
+//   uses, so neighbouring lanes read neighbouring bytes, and computes
+//   that row's contribution with the per-row operations above; the two
+//   density lookups of a pair tile are independent across lanes; tile
+//   t + 1 is loaded before tile t is summed;
+// - the sum (RowSums): each lane stores its row's contribution to each
+//   column in the warp's shared memory, then lane k adds column k's
+//   values for lanes 0 .. valid-1, in lane order, so the rows' order:
+//   one chain of adds a tile and column, the columns side by side on
+//   their lanes. The sums start at 0.0f and carry from tile to tile, and
+//   only the segment's rows are added, never a padding zero.
+//
+// Tensor cores (wgmma), TMA and clusters have no place here: there is no
+// product to feed, and each warp gathers a few hundred bytes a tile from
+// rows it finds only at run time, too little and too ragged for a TMA
+// tile; the loads are already coalesced 32-row tiles, and cp.async
+// would only stage what one load a lane already brings.
 
 #include <cstdint>
 
@@ -55,8 +78,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kTable = 256;
+constexpr unsigned kFull = 0xffffffffu;
+// a row past the table's end: a variant no segment has
+constexpr unsigned kNoVariant = 0x10000u;
 
 // cr_u8 / cp_u8 flag bits (evidence/extract.py)
 constexpr unsigned kRCovHit = 1, kRClipHit = 2, kRLHit = 4, kRRHit = 8,
@@ -87,39 +114,116 @@ struct Wire {
   int n_pairs;
 };
 
-// first index i in [0, n) with a[i] >= v (torch.searchsorted, left)
-__device__ __forceinline__ int lower_bound(const uint16_t* __restrict__ a,
-                                           int n, int v) {
+// first index i in [0, n) with a[i] >= v, or n (torch.searchsorted,
+// side left), the same in every lane. The answer stays in [lo, hi]; a
+// round probes rows lo + (l+1)*step - 1 and keeps the stretch between the
+// last probe below v and the first at or above it.
+__device__ __forceinline__ int warp_lower_bound(
+    const uint16_t* __restrict__ a, int n, int v, int lane) {
   int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (static_cast<int>(a[mid]) < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) >> 5;
+    const int q = lo + (lane + 1) * step - 1;
+    const unsigned ge = __ballot_sync(
+        kFull, q >= hi || static_cast<int>(__ldg(a + q)) >= v);
+    if (ge == 0) return hi;
+    const int b = __ffs(ge) - 1;
+    hi = min(lo + (b + 1) * step - 1, hi);
+    lo += b * step;
   }
-  return lo;
+  const int q = lo + lane;
+  const unsigned ge =
+      __ballot_sync(kFull, q >= hi || static_cast<int>(__ldg(a + q)) >= v);
+  return ge == 0 ? hi : lo + __ffs(ge) - 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    classify_compact_kernel(Wire w, const float* __restrict__ dens,
-                            int n_lib, int width,
-                            const float* __restrict__ prob_mapq, int n_var,
-                            float* __restrict__ counts) {
-  __shared__ float s_pm[kTable];
-  for (int j = threadIdx.x; j < kTable; j += kThreads) s_pm[j] = prob_mapq[j];
-  __syncthreads();
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= n_var) return;
+// The running sums of a segment's kCols columns, each added in row order
+// from 0.0f. add() takes one tile: lane l's contribution to column k in
+// c[k], lanes 0 .. valid-1 the segment's rows (a prefix of the tile).
+// The tile goes through the warp's shared memory, column k at
+// tile[k * kStride ...], and lane k adds column k's valid rows in order:
+// a store a column, eight 16-byte loads and one chain of adds a tile.
+constexpr int kStride = 36;  // floats: lanes 0-2 read disjoint banks
 
-  // ---- reads (SPEC.md §4.1 coverage, §4.2 splits and clips)
-  float ref_seq = 0.0f, alt_seq = 0.0f, alt_clip = 0.0f;
-  const int r_end = lower_bound(w.r_var, w.n_reads, v + 1);
-  for (int i = lower_bound(w.r_var, w.n_reads, v); i < r_end; ++i) {
-    const unsigned rf = w.r_flags[i];
-    const float pm = s_pm[w.r_mapq[i]];
-    const float spm = s_pm[w.r_sa_mapq[i]];
+template <int kCols>
+struct RowSums {
+  float s = 0.0f;  // lane k: column k's sum
+
+  __device__ __forceinline__ void add(const float (&c)[kCols], int valid,
+                                      int lane, float* tile) {
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) tile[k * kStride + lane] = c[k];
+    __syncwarp();
+    if (lane < kCols) {
+      const float4* col =
+          reinterpret_cast<const float4*>(tile + lane * kStride);
+      float4 x[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) x[q] = col[q];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (4 * q < valid) s = __fadd_rn(s, x[q].x);
+        if (4 * q + 1 < valid) s = __fadd_rn(s, x[q].y);
+        if (4 * q + 2 < valid) s = __fadd_rn(s, x[q].z);
+        if (4 * q + 3 < valid) s = __fadd_rn(s, x[q].w);
+      }
+    }
+    __syncwarp();  // the loads are done before the next tile's stores
+  }
+
+  __device__ __forceinline__ void store(float* out, int lane) const {
+    if (lane < kCols) out[lane] = s;
+  }
+};
+
+struct ReadRow {
+  unsigned var, mapq, sa_mapq, flags;
+};
+
+__device__ __forceinline__ ReadRow load_read(const Wire& w, int i) {
+  ReadRow r = {kNoVariant, 0, 0, 0};
+  if (i < w.n_reads) {
+    r.var = __ldg(w.r_var + i);
+    r.mapq = __ldg(w.r_mapq + i);
+    r.sa_mapq = __ldg(w.r_sa_mapq + i);
+    r.flags = __ldg(w.r_flags + i);
+  }
+  return r;
+}
+
+struct PairRow {
+  unsigned var, a_mapq, b_mapq, lib, flags;
+  int ospan;
+};
+
+__device__ __forceinline__ PairRow load_pair(const Wire& w, int i) {
+  PairRow p = {kNoVariant, 0, 0, 0, 0, 0};
+  if (i < w.n_pairs) {
+    p.var = __ldg(w.p_var + i);
+    p.ospan = __ldg(w.p_ospan + i);
+    p.a_mapq = __ldg(w.p_a_mapq + i);
+    p.b_mapq = __ldg(w.p_b_mapq + i);
+    p.lib = __ldg(w.p_lib + i);
+    p.flags = __ldg(w.p_flags + i);
+  }
+  return p;
+}
+
+// ---- reads (SPEC.md §4.1 coverage, §4.2 splits and clips) → out[0..2]
+__device__ __forceinline__ void classify_reads(const Wire& w,
+                                               const float* s_pm, int v,
+                                               int lane, float* tile,
+                                               float* out) {
+  int i = warp_lower_bound(w.r_var, w.n_reads, v, lane) + lane;
+  ReadRow cur = load_read(w, i);
+  RowSums<3> sums;
+  while (true) {
+    const int valid = __popc(__ballot_sync(kFull, cur.var == unsigned(v)));
+    if (valid == 0) break;
+    const ReadRow next = load_read(w, valid == 32 ? i + 32 : w.n_reads);
+    const unsigned rf = cur.flags;
+    const float pm = s_pm[cur.mapq];
+    const float spm = s_pm[cur.sa_mapq];
     const bool prim_first = (rf & kRPrimFirst) != 0;
     const float l_pm = prim_first ? pm : spm;
     const float r_pm = prim_first ? spm : pm;
@@ -129,37 +233,49 @@ __global__ void __launch_bounds__(kThreads)
     const float alt_seq_c = __fmul_rn(
         __fadd_rn(__fmul_rn(l_pm, lhit), __fmul_rn(r_pm, rhit)), 0.5f);
     const float alt_clip_c = (rf & kRClipHit) != 0 ? pm : 0.0f;
-    ref_seq = __fadd_rn(ref_seq, ref_seq_c);
-    alt_seq = __fadd_rn(alt_seq, alt_seq_c);
-    alt_clip = __fadd_rn(alt_clip, alt_clip_c);
+    const float c[3] = {ref_seq_c, alt_seq_c, alt_clip_c};
+    sums.add(c, valid, lane, tile);
+    if (valid < 32) break;
+    cur = next;
+    i += 32;
   }
+  sums.store(out, lane);
+}
 
-  // ---- pairs (SPEC.md §4.3)
-  const int vlen = w.v_vlen[v];
-  const bool is_del = w.v_is_del[v] != 0;
-  float ref_span = 0.0f, alt_span = 0.0f;
-  const int p_end = lower_bound(w.p_var, w.n_pairs, v + 1);
-  for (int i = lower_bound(w.p_var, w.n_pairs, v); i < p_end; ++i) {
-    const unsigned pf = w.p_flags[i];
-    const float p_pair =
-        __fmul_rn(s_pm[w.p_a_mapq[i]], s_pm[w.p_b_mapq[i]]);
+// ---- pairs (SPEC.md §4.3) → out[3..4]
+__device__ __forceinline__ void classify_pairs(const Wire& w,
+                                               const float* __restrict__ dens,
+                                               int n_lib, int width,
+                                               const float* s_pm, int v,
+                                               int lane, float* tile,
+                                               float* out) {
+  const int vlen = __ldg(w.v_vlen + v);
+  const bool is_del = __ldg(w.v_is_del + v) != 0;
+  int i = warp_lower_bound(w.p_var, w.n_pairs, v, lane) + lane;
+  PairRow cur = load_pair(w, i);
+  RowSums<2> sums;
+  while (true) {
+    const int valid = __popc(__ballot_sync(kFull, cur.var == unsigned(v)));
+    if (valid == 0) break;
+    const PairRow next = load_pair(w, valid == 32 ? i + 32 : w.n_pairs);
+    const unsigned pf = cur.flags;
+    const float p_pair = __fmul_rn(s_pm[cur.a_mapq], s_pm[cur.b_mapq]);
     const bool alt = (pf & kPAlt) != 0;
     const bool alt_rec = (pf & kPAltRec) != 0;
     const float refw = static_cast<float>(pf >> 2);
     float ref_span_c = __fmul_rn(__fmul_rn(refw, p_pair), 0.5f);
 
-    const unsigned lu8 = w.p_lib[i];
-    const int lib = lu8 == kLibInvalid ? -1 : static_cast<int>(lu8);
+    const int lib = cur.lib == kLibInvalid ? -1 : static_cast<int>(cur.lib);
     const int lib_safe = min(max(lib, 0), n_lib - 1);
     const float* row = dens + static_cast<size_t>(lib_safe) * width;
-    const int ospan = w.p_ospan[i];
+    const int ospan = cur.ospan;
     // int32 wrap, as the plain version's int32 subtract
     const int disc = static_cast<int>(static_cast<uint32_t>(ospan) -
                                       static_cast<uint32_t>(vlen));
     const float d_conc =
-        (ospan >= 0 && ospan < width && lib >= 0) ? row[ospan] : 0.0f;
+        (ospan >= 0 && ospan < width && lib >= 0) ? __ldg(row + ospan) : 0.0f;
     const float d_disc =
-        (disc >= 0 && disc < width && lib >= 0) ? row[disc] : 0.0f;
+        (disc >= 0 && disc < width && lib >= 0) ? __ldg(row + disc) : 0.0f;
     const float denom = __fadd_rn(__fmul_rn(kPriorConc, d_conc),
                                   __fmul_rn(kPriorDisc, d_disc));
     const bool has_denom = denom > 0.0f;
@@ -172,16 +288,35 @@ __global__ void __launch_bounds__(kThreads)
         __fadd_rn(__fadd_rn(del_move, (alt && !is_del) ? p_pair : 0.0f),
                   alt_rec ? p_pair : 0.0f);
     ref_span_c = __fsub_rn(ref_span_c, del_move);
-    ref_span = __fadd_rn(ref_span, ref_span_c);
-    alt_span = __fadd_rn(alt_span, alt_span_c);
+    const float c[2] = {ref_span_c, alt_span_c};
+    sums.add(c, valid, lane, tile);
+    if (valid < 32) break;
+    cur = next;
+    i += 32;
   }
+  sums.store(out + 3, lane);
+}
 
+__global__ void __launch_bounds__(kThreads)
+    classify_compact_kernel(Wire w, const float* __restrict__ dens,
+                            int n_lib, int width,
+                            const float* __restrict__ prob_mapq, int n_var,
+                            float* __restrict__ counts) {
+  __shared__ float s_pm[kTable];
+  __shared__ __align__(16) float s_tile[kWarps][3 * kStride];
+  for (int j = threadIdx.x; j < kTable; j += kThreads) s_pm[j] = prob_mapq[j];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  float* tile = s_tile[threadIdx.x >> 5];
+  const int v = warp >> 1;
+  if (v >= n_var) return;
   float* out = counts + static_cast<size_t>(v) * 5;
-  out[0] = ref_seq;
-  out[1] = alt_seq;
-  out[2] = alt_clip;
-  out[3] = ref_span;
-  out[4] = alt_span;
+  if ((warp & 1) == 0) {
+    classify_reads(w, s_pm, v, lane, tile, out);
+  } else {
+    classify_pairs(w, dens, n_lib, width, s_pm, v, lane, tile, out);
+  }
 }
 
 }  // namespace
@@ -217,7 +352,8 @@ extern "C" int svt_classify_compact(const void* wire, const void* offsets,
   w.v_is_del = base + off[6] + static_cast<int64_t>(kIsDelRow) * v_cols;
   w.n_reads = n_reads;
   w.n_pairs = n_pairs;
-  const int blocks = (n_var + kThreads - 1) / kThreads;
+  const int64_t warps = 2 * static_cast<int64_t>(n_var);
+  const int blocks = static_cast<int>((warps + kWarps - 1) / kWarps);
   classify_compact_kernel<<<blocks, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       w, static_cast<const float*>(dens), n_lib, width,

@@ -20,16 +20,20 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "svtyper_tpu_torch")
 
 # -fmad=false: no multiply-add contraction anywhere in the file, so
-# every product and sum rounds on its own as PyTorch's eager ops do
+# every product and sum rounds on its own as PyTorch's eager ops do;
+# -Xptxas -v: each kernel's registers, shared memory and spills (PTXAS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
 _locks = {}  # one lock per library: two libraries build side by side
 _libs = {}
+# library path → ptxas's register, memory and spill lines, for each
+# library this process built
+PTXAS = {}
 
 
 def _nvcc() -> str:
@@ -49,11 +53,16 @@ def _nvcc() -> str:
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` → ``BUILD_DIR/lib<name>.so`` if the
     library is missing or older than its source; returns its path."""
-    src = os.path.join(CSRC, name + ".cu")
-    so = os.path.join(BUILD_DIR, "lib%s.so" % name)
+    return build_source(os.path.join(CSRC, name + ".cu"),
+                        os.path.join(BUILD_DIR, "lib%s.so" % name))
+
+
+def build_source(src: str, so: str) -> str:
+    """Compile the CUDA source ``src`` with ``NVCC_FLAGS`` → the library
+    ``so``, unless it exists and is newer than ``src``; returns ``so``."""
     if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
     res = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
@@ -65,6 +74,10 @@ def build(name: str) -> str:
             % (src, res.returncode, res.stdout, res.stderr)
         )
     os.replace(tmp, so)
+    PTXAS[so] = [ln.split(":", 1)[-1].strip() if "ptxas info" in ln
+                 else ln.strip()
+                 for ln in (res.stdout + res.stderr).splitlines()
+                 if "Used" in ln or "spill" in ln]
     return so
 
 

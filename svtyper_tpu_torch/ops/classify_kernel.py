@@ -3,12 +3,13 @@ kernel and its plain version.
 
 ``classify_wire`` is the engine's classifier. On a CUDA wire it launches
 ``csrc/classify_kernel.cu``, which reads the seven matrices straight
-from the shard's uint8 wire (one thread per variant segment, its rows
-found by binary search) and writes the ``[n_var, 5]`` counts in one
-launch. On a CPU wire it runs the plain version, ``unwire`` and then
-``evidence/device.py::classify_compact``, in float32 or float64. Any
-other device raises; there is no fallback from the kernel to the plain
-version.
+from the shard's uint8 wire (a warp per variant segment of each table:
+a 32-ary search finds its first row, 32-row tiles are loaded coalesced
+and each column's rows added in row order through shared memory) and
+writes the ``[n_var, 5]`` counts in one launch. On a CPU wire it runs the plain version,
+``unwire`` and then ``evidence/device.py::classify_compact``, in float32
+or float64. Any other device raises; there is no fallback from the
+kernel to the plain version.
 
 The kernel repeats the plain version's float32 operations in the same
 order, with no multiply-add contraction, and sums each segment's rows in
@@ -132,13 +133,11 @@ def _kernel_layout(geom):
     return offsets, r, f, v
 
 
-@functools.lru_cache(maxsize=1)
-def _entry():
-    """``svt_classify_compact`` from the built library, with its C
+def bind(lib: ctypes.CDLL):
+    """``svt_classify_compact`` of a library built from
+    ``csrc/classify_kernel.cu`` (or another version of it), with its C
     signature."""
-    from svtyper_tpu_torch.ops._build import load
-
-    fn = load("classify_kernel").svt_classify_compact
+    fn = lib.svt_classify_compact
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,
@@ -149,13 +148,23 @@ def _entry():
     return fn
 
 
+@functools.lru_cache(maxsize=1)
+def _entry():
+    """``svt_classify_compact`` from the built library."""
+    from svtyper_tpu_torch.ops._build import load
+
+    return bind(load("classify_kernel"))
+
+
 def classify_compact_cuda(
-    wire: torch.Tensor, geom, dens: torch.Tensor, n_var: int
+    wire: torch.Tensor, geom, dens: torch.Tensor, n_var: int, entry=None
 ) -> torch.Tensor:
     """Launch ``csrc/classify_kernel.cu`` on the current stream →
     counts [n_var, 5] float32, contiguous and 16-byte aligned. Takes the
     shard's uint8 wire (4-byte aligned) and ``dens`` [n_lib, W] float32,
-    both contiguous on one CUDA device."""
+    both contiguous on one CUDA device. ``entry`` is another build's
+    bound ``svt_classify_compact`` (``tools/classify_bench.py``); the
+    checkout's library by default."""
     global LAUNCHES
     dev = wire.device
     if dev.type != "cuda":
@@ -175,7 +184,7 @@ def classify_compact_cuda(
     if n_var == 0:
         return counts
     table = _prob_mapq_table(dev, torch.float32)
-    fn = _entry()
+    fn = _entry() if entry is None else entry
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(

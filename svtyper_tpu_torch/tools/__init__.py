@@ -5,6 +5,9 @@ a plain function that tests and ``chip_smoke.py`` call:
 
 - ``gl_bench``         the CUDA GL kernel against its plain twin and the
                        torch ``genotype_batch`` (``scripts/pallas_vs_jnp.py``);
+- ``classify_bench``   versions of the classify kernel (this checkout's
+                       and another's) timed in turns on one chunk of the
+                       engine's prep;
 - ``profile_chunks``   chunk-size sweep with the prep/send/sync split
                        (``scripts/profile_tpu.py``);
 - ``scaling_curve``    variants/s over 1, 2, 4, 8 devices, output held

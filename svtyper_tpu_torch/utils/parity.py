@@ -5,6 +5,9 @@ is not installed):
 
 - ``random_counts`` / ``adversarial_counts``: the GL test grids of
   ``tests/test_pallas_gl.py``, rebuilt from the same numpy seeds;
+- ``adversarial_compact`` / ``edge_compacts``: compact chunks that reach
+  every branch and every segment edge of the classify kernel
+  (``csrc/classify_kernel.cu``);
 - ``assert_format_parity``: a copy of that file's check that two GL
   stages agree at the output contract's precision (SPEC.md §6);
 - ``rows_split``: the engine's ``[N,24]`` rows as the (ref dict, ints,
@@ -21,6 +24,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from svtyper_tpu_torch.evidence.extract import (
+    LIB_INVALID,
+    VARS_BOOL,
+    VARS_I32,
+)
 from svtyper_tpu_torch.utils.formatting import fmt_g2
 
 N_INT = 14
@@ -49,6 +57,107 @@ def adversarial_counts(n, seed=42):
     is_dup = rng.random(n) < 0.3
     force_null = rng.random(n) < 0.05
     return counts, is_dup, force_null
+
+
+def _compact_around(rng, r_var, p_var, v_cols: int, n_lib: int,
+                    width: int):
+    """Compact matrices around the variant columns ``r_var`` [1,R] and
+    ``p_var`` [1,F] (uint16) → (compact, dens [n_lib, width] float32),
+    every other column drawn from ``rng`` to reach every branch of the
+    classify kernel: mapq 0 and 255, LIB_INVALID and a library past the
+    table, spans below 0, at and past W, int32 wrap (ospan and vlen at
+    the int32 limits), zero densities."""
+    n_reads, n_pairs = r_var.shape[1], p_var.shape[1]
+    big = np.iinfo(np.int32)
+
+    def mapq(n):
+        return rng.choice(np.asarray([0, 4, 20, 27, 40, 60, 254, 255],
+                                     dtype=np.uint8), n)
+
+    ospan = rng.integers(-8, width + 8, n_pairs).astype(np.int32)
+    ospan[::17] = big.min
+    ospan[::19] = big.max
+    vlen = rng.integers(-width, width, v_cols).astype(np.int32)
+    vlen[::5] = big.max
+    vlen[2::5] = big.min
+    v_i32 = rng.integers(-1000, 1000, (len(VARS_I32), v_cols)).astype(np.int32)
+    v_i32[VARS_I32.index("vlen")] = vlen
+    dens = rng.random((n_lib, width)).astype(np.float32) * np.float32(0.01)
+    dens[:, ::3] = 0  # zero denominators where both lookups land here
+    libs = np.asarray([*range(n_lib), n_lib, LIB_INVALID], dtype=np.uint8)
+    compact = {
+        "cr_u16": r_var,
+        "cr_u8": np.stack([mapq(n_reads), mapq(n_reads),
+                           rng.integers(0, 32, n_reads).astype(np.uint8)]),
+        "cp_u16": p_var,
+        "cp_i32": ospan[None],
+        "cp_u8": np.stack([
+            mapq(n_pairs), mapq(n_pairs), rng.choice(libs, n_pairs),
+            rng.integers(0, 16, n_pairs).astype(np.uint8),
+        ]),
+        "v_i32": v_i32,
+        "v_u8": rng.integers(0, 2, (len(VARS_BOOL), v_cols)).astype(np.uint8),
+    }
+    return compact, dens
+
+
+def adversarial_compact(seed: int = 3, n_var: int = 40, n_reads: int = 704,
+                        n_pairs: int = 500, n_lib: int = 3, width: int = 64):
+    """Compact matrices and dens [n_lib, width] float32 that reach every
+    branch of the classify kernel → (compact, dens, n_var): empty
+    segments (5, 6 and the last), padding rows at n_var, a library whose
+    densities are all zero, and the rows of ``_compact_around``."""
+    rng = np.random.default_rng(seed)
+
+    def var_column(n):
+        var = rng.integers(0, n_var + 1, n)
+        var[(var == 5) | (var == 6) | (var == n_var - 1)] = 7
+        var[-n // 10:] = n_var
+        return np.sort(var).astype(np.uint16)[None]
+
+    compact, dens = _compact_around(rng, var_column(n_reads),
+                                    var_column(n_pairs), n_var, n_lib, width)
+    dens[1] = 0
+    return compact, dens, n_var
+
+
+# segment lengths of the edge chunks, (reads, pairs) per variant: around
+# the classify kernel's 32-row tile (0, 1, 31-33, 63-65) and one of more
+# than 2,000 rows; every segment that starts past row 0 starts off a
+# multiple of 32
+EDGE_SEGMENTS = {
+    "nine segments": ([1, 33, 0, 31, 65, 32, 63, 64, 2049],
+                      [33, 2049, 1, 63, 0, 31, 65, 32, 64]),
+    "one variant": ([33], [2049]),
+    "three variants": ([31, 0, 64], [63, 32, 1]),
+    "five variants": ([65, 1, 32, 0, 63], [0, 33, 65, 31, 64]),
+    "padding only": ([0, 0, 0], [0, 0, 0]),
+}
+
+
+def edge_compacts(seed: int = 5, n_lib: int = 2, width: int = 64):
+    """The edge chunks of ``EDGE_SEGMENTS`` → [(name, compact, dens,
+    n_var)]: each table's segments in order, then the padding rows at
+    n_var (5-8 reads, 5-6 pairs; the only rows of "padding only"), two
+    variant columns past n_var, and the rows of ``_compact_around``. R
+    is a multiple of 4 and F even, so the wire's matrices stay
+    aligned."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, (read_len, pair_len) in EDGE_SEGMENTS.items():
+        n_var = len(read_len)
+
+        def var_column(lengths, mult):
+            var = np.repeat(np.arange(n_var), lengths)
+            pad = 5 + (-(len(var) + 5) % mult)
+            return np.concatenate([var, np.full(pad, n_var)]).astype(
+                np.uint16)[None]
+
+        compact, dens = _compact_around(
+            rng, var_column(read_len, 4), var_column(pair_len, 2),
+            n_var + 2, n_lib, width)
+        out.append((name, compact, dens, n_var))
+    return out
 
 
 def _away_from_boundary(v, step, eps):

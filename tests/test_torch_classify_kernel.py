@@ -1,21 +1,32 @@
 """The engine's classifier on the wire (``svtyper_tpu_torch.ops.
 classify_kernel``) on the CPU.
 
-- a numpy float32 model of ``csrc/classify_kernel.cu`` (its per-row
-  operations in its order, each segment found by binary search and
-  summed row by row from 0) is bit-identical to the plain
-  ``classify_compact``, on the matrices and through the wire, on the
-  synthetic chunk, the real chunk of ``test_torch_evidence.py`` and an
-  adversarial chunk (empty segments, mapq 0 and 255, ``LIB_INVALID`` and
-  libraries past the table, density indices outside ``[0, W)``, int32
-  wrap in ``ospan - vlen``, zero denominators). The counts are compared
-  bit for bit because DP/RO/AO/QR/QA are truncations of them;
+- a numpy float32 model of ``csrc/classify_kernel.cu``, step for step:
+  a warp per variant segment of each table, its first row found by the
+  kernel's 32-ary ballot search, 32-row tiles whose lanes apply the
+  kernel's per-row operations in its order, and each column's lanes
+  added in order from 0, only the segment's rows. It is bit-identical to
+  the plain ``classify_compact``, on the matrices and through the wire,
+  on the synthetic chunk, the real chunk of ``test_torch_evidence.py``,
+  an adversarial chunk (empty segments, mapq 0 and 255, ``LIB_INVALID``
+  and libraries past the table, density indices outside ``[0, W)``,
+  int32 wrap in ``ospan - vlen``, zero denominators) and the edge chunks
+  (segments of 0, 1, 31-33, 63-65 and 2,049 rows, off the tile's
+  alignment; 1, 3 and 5 variants; padding rows only). The counts are
+  compared bit for bit because DP/RO/AO/QR/QA are truncations of them;
+- the model's search equals ``np.searchsorted`` (left) for every
+  variant of the edge chunks and of a 1,024-variant chunk's 180,000
+  pair rows;
 - ``wire_layout`` against ``unwire``'s views, and its refusals;
 - ``classify_wire`` on the CPU against JAX's ``classify_compact`` in
   float32 and float64, exactly (the fixtures' mapq avoid 1-3; see
   ``test_torch_evidence.py``);
 - the CUDA entry refusing CPU tensors, the engine's
   ``classify_launches`` and its place in ``SVT_CLI_STATS``;
+- ``tools/classify_bench.py`` on the CPU: its source specs, its bound
+  against a count of its own, the engine's chunks it times (the model
+  bit-identical to ``classify_wire`` on them), and its refusal without
+  CUDA;
 - one ``cuda``-marked test of the kernel against the plain version on
   the card.
 """
@@ -49,7 +60,15 @@ from svtyper_tpu_torch.ops.classify_kernel import (
     wire_nbytes,
     wire_rows,
 )
+from svtyper_tpu_torch.gt.engine import TorchEngine
 from svtyper_tpu_torch.parallel.synth import make_synthetic_chunk
+from svtyper_tpu_torch.tools import classify_bench, common
+from svtyper_tpu_torch.utils import fixture
+from svtyper_tpu_torch.utils.parity import (
+    EDGE_SEGMENTS,
+    adversarial_compact,
+    edge_compacts,
+)
 from test_torch_evidence import real_chunk  # noqa: F401 (module fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,9 +76,68 @@ DATA = os.path.join(ROOT, "data")
 F32 = np.float32
 
 
+LANES = 32  # the kernel's warp: a tile is 32 rows, one a lane
+NO_VARIANT = 0x10000  # the variant of a lane past the table's end
+
+
+def warp_search(a: np.ndarray, v: int) -> int:
+    """The kernel's ``warp_lower_bound``, round by round: the first index
+    of ``a`` (sorted) at or above ``v``, or ``len(a)``."""
+    lanes = np.arange(LANES)
+    lo, hi = 0, len(a)
+
+    def ballot(q):
+        ge = q >= hi
+        ge[~ge] = a[q[~ge]].astype(np.int64) >= v
+        return ge
+
+    while hi - lo > LANES:
+        step = (hi - lo + LANES - 1) // LANES
+        ge = ballot(lo + (lanes + 1) * step - 1)
+        if not ge.any():
+            return hi
+        b = int(np.argmax(ge))
+        hi = min(lo + (b + 1) * step - 1, hi)
+        lo += b * step
+    ge = ballot(lo + lanes)
+    return lo + int(np.argmax(ge)) if ge.any() else hi
+
+
+def warp_walk(var: np.ndarray, v: int, contrib, ncols: int) -> np.ndarray:
+    """One warp's walk of variant ``v``'s segment of a table: its first
+    row by ``warp_search``, then tiles of 32 rows, lane l on row
+    start + 32t + l; ``valid`` is the count of lanes on variant ``v`` (a
+    prefix of the tile), ``contrib(rows, in_table)`` gives the 32 lanes'
+    contributions [32, ncols] float32, and each column adds lanes
+    0 .. valid-1 in order to its running sum, from 0. The walk ends at
+    the first tile that is not all variant ``v``."""
+    sums = np.zeros(ncols, dtype=F32)
+    base = warp_search(var, v)
+    while True:
+        rows = base + np.arange(LANES)
+        inside = rows < len(var)
+        lane_var = np.full(LANES, NO_VARIANT, dtype=np.int64)
+        lane_var[inside] = var[rows[inside]]
+        mine = lane_var == v
+        valid = int(mine.sum())
+        assert mine[:valid].all(), "the segment's rows are not a prefix"
+        if valid == 0:
+            break
+        c = contrib(np.where(inside, rows, 0), inside)
+        for j in range(valid):
+            sums = sums + c[j]  # float32 + float32: one rounding a column
+        if valid < LANES:
+            break
+        base += LANES
+    return sums
+
+
 def kernel_model(wire: np.ndarray, geom, dens: np.ndarray, n_var: int):
-    """csrc/classify_kernel.cu in numpy float32 → counts [n_var, 5].
-    Each numpy operation rounds once, as each __f*_rn intrinsic does."""
+    """csrc/classify_kernel.cu in numpy float32 → counts [n_var, 5]: for
+    each variant a warp walks its read rows and one its pair rows
+    (``warp_walk``), each lane computing its row's contribution with the
+    kernel's per-row operations. Each numpy operation rounds once, as
+    each __f*_rn intrinsic does."""
     layout = wire_layout(geom)
 
     def mat(k):
@@ -68,117 +146,83 @@ def kernel_model(wire: np.ndarray, geom, dens: np.ndarray, n_var: int):
         return wire[off: off + nb].view(dt).reshape(shape)
 
     r_var, cr8, p_var, cp32, cp8, v32, v8 = (mat(k) for k in range(7))
-    r_var, p_var, ospan = r_var[0], p_var[0], cp32[0]
+    r_var, p_var = r_var[0], p_var[0]
     table = PROB_MAPQ.astype(F32)
     n_lib, width = dens.shape
 
-    # read rows
-    pm, spm, rf = table[cr8[0]], table[cr8[1]], cr8[2]
-    prim_first = (rf & 16) != 0
-    l_pm = np.where(prim_first, pm, spm)
-    r_pm = np.where(prim_first, spm, pm)
-    lhit = np.where((rf & 4) != 0, F32(1), F32(0))
-    rhit = np.where((rf & 8) != 0, F32(1), F32(0))
-    read_c = np.stack([
-        np.where((rf & 1) != 0, pm, F32(0)),
-        (l_pm * lhit + r_pm * rhit) * F32(0.5),
-        np.where((rf & 2) != 0, pm, F32(0)),
-    ], axis=1)
+    def lanes(col, rows, inside):
+        """A column's value in each lane; 0 past the table's end."""
+        return np.where(inside, col[rows], 0)
 
-    # pair rows (padding rows of the trash segment read variant 0; the
-    # sums below never reach them)
-    pv = np.where(p_var < n_var, p_var, 0)
-    vlen = v32[VARS_I32.index("vlen")][pv]
-    is_del = v8[VARS_BOOL.index("is_del")][pv] != 0
-    pf = cp8[3]
-    p_pair = table[cp8[0]] * table[cp8[1]]
-    alt = (pf & 1) != 0
-    alt_rec = (pf & 2) != 0
-    ref_span_c = (pf >> 2).astype(F32) * p_pair * F32(0.5)
-    lib = np.where(cp8[2] == LIB_INVALID, -1, cp8[2].astype(np.int64))
-    lib_safe = np.clip(lib, 0, n_lib - 1)
+    def read_contrib(rows, inside):
+        rf = lanes(cr8[2], rows, inside)
+        pm = table[lanes(cr8[0], rows, inside)]
+        spm = table[lanes(cr8[1], rows, inside)]
+        prim_first = (rf & 16) != 0
+        l_pm = np.where(prim_first, pm, spm)
+        r_pm = np.where(prim_first, spm, pm)
+        lhit = np.where((rf & 4) != 0, F32(1), F32(0))
+        rhit = np.where((rf & 8) != 0, F32(1), F32(0))
+        return np.stack([
+            np.where((rf & 1) != 0, pm, F32(0)),
+            (l_pm * lhit + r_pm * rhit) * F32(0.5),
+            np.where((rf & 2) != 0, pm, F32(0)),
+        ], axis=1)
 
-    def dens_at(x):
-        ok = (x >= 0) & (x < width) & (lib >= 0)
-        return np.where(ok, dens[lib_safe, np.clip(x, 0, width - 1)], F32(0))
+    def pair_contrib(v):
+        vlen = v32[VARS_I32.index("vlen")][v]
+        is_del = v8[VARS_BOOL.index("is_del")][v] != 0
 
-    d_conc = dens_at(ospan)
-    d_disc = dens_at(np.subtract(ospan, vlen, dtype=np.int32))
-    denom = F32(0.95) * d_conc + F32(0.05) * d_disc
-    has_denom = denom > 0
-    with np.errstate(divide="ignore", invalid="ignore"):
-        p_conc = np.where(has_denom, (F32(0.95) * d_conc) / denom, F32(0))
-    del_move = np.where(is_del & alt & has_denom,
-                        (F32(1) - p_conc) * p_pair, F32(0))
-    alt_span_c = (del_move + np.where(alt & ~is_del, p_pair, F32(0))
-                  + np.where(alt_rec, p_pair, F32(0)))
-    pair_c = np.stack([ref_span_c - del_move, alt_span_c], axis=1)
+        def contrib(rows, inside):
+            pf = lanes(cp8[3], rows, inside)
+            p_pair = (table[lanes(cp8[0], rows, inside)]
+                      * table[lanes(cp8[1], rows, inside)])
+            alt = (pf & 1) != 0
+            alt_rec = (pf & 2) != 0
+            ref_span_c = (pf >> 2).astype(F32) * p_pair * F32(0.5)
+            lu8 = lanes(cp8[2], rows, inside)
+            lib = np.where(lu8 == LIB_INVALID, -1, lu8.astype(np.int64))
+            lib_safe = np.clip(lib, 0, n_lib - 1)
+            ospan = lanes(cp32[0], rows, inside).astype(np.int32)
 
-    # one thread per variant: binary search for its rows, sum in order
+            def dens_at(x):
+                ok = (x >= 0) & (x < width) & (lib >= 0)
+                return np.where(ok, dens[lib_safe, np.clip(x, 0, width - 1)],
+                                F32(0))
+
+            d_conc = dens_at(ospan)
+            d_disc = dens_at(np.subtract(ospan, vlen, dtype=np.int32))
+            denom = F32(0.95) * d_conc + F32(0.05) * d_disc
+            has_denom = denom > 0
+            with np.errstate(divide="ignore", invalid="ignore"):
+                p_conc = np.where(has_denom, (F32(0.95) * d_conc) / denom,
+                                  F32(0))
+            del_move = np.where(is_del & alt & has_denom,
+                                (F32(1) - p_conc) * p_pair, F32(0))
+            alt_span_c = (del_move + np.where(alt & ~is_del, p_pair, F32(0))
+                          + np.where(alt_rec, p_pair, F32(0)))
+            return np.stack([ref_span_c - del_move, alt_span_c], axis=1)
+
+        return contrib
+
     out = np.zeros((n_var, 5), dtype=F32)
-    for col, rows, var in ((0, read_c, r_var), (3, pair_c, p_var)):
-        first = np.searchsorted(var, np.arange(n_var + 1), side="left")
-        for v in range(n_var):
-            acc = np.zeros(rows.shape[1], dtype=F32)
-            for i in range(first[v], first[v + 1]):
-                acc = acc + rows[i]
-            out[v, col: col + rows.shape[1]] = acc
+    for v in range(n_var):
+        out[v, :3] = warp_walk(r_var, v, read_contrib, 3)
+        out[v, 3:] = warp_walk(p_var, v, pair_contrib(v), 2)
     return out
 
 
-def adversarial_compact(seed: int = 3, n_var: int = 40, n_reads: int = 704,
-                        n_pairs: int = 500, n_lib: int = 3, width: int = 64):
-    """Compact matrices and dens [n_lib, width] float32 that reach every
-    branch of the kernel: empty segments (5, 6 and the last), padding
-    rows at n_var, mapq 0 and 255, LIB_INVALID and a library past the
-    table, spans below 0, at and past W, int32 wrap, zero densities."""
-    rng = np.random.default_rng(seed)
-
-    def var_column(n):
-        var = rng.integers(0, n_var + 1, n)
-        var[(var == 5) | (var == 6) | (var == n_var - 1)] = 7
-        var[-n // 10:] = n_var
-        return np.sort(var).astype(np.uint16)[None]
-
-    def mapq(n):
-        return rng.choice(np.asarray([0, 4, 20, 27, 40, 60, 254, 255],
-                                     dtype=np.uint8), n)
-
-    big = np.iinfo(np.int32)
-    ospan = rng.integers(-8, width + 8, n_pairs).astype(np.int32)
-    ospan[::17] = big.min
-    ospan[::19] = big.max
-    vlen = rng.integers(-width, width, n_var).astype(np.int32)
-    vlen[::7] = big.max
-    vlen[::11] = big.min
-    v_i32 = rng.integers(-1000, 1000, (len(VARS_I32), n_var)).astype(np.int32)
-    v_i32[VARS_I32.index("vlen")] = vlen
-    dens = rng.random((n_lib, width)).astype(F32) * F32(0.01)
-    dens[:, ::3] = 0  # zero denominators where both lookups land here
-    dens[1] = 0
-    compact = {
-        "cr_u16": var_column(n_reads),
-        "cr_u8": np.stack([mapq(n_reads), mapq(n_reads),
-                           rng.integers(0, 32, n_reads).astype(np.uint8)]),
-        "cp_u16": var_column(n_pairs),
-        "cp_i32": ospan[None],
-        "cp_u8": np.stack([
-            mapq(n_pairs), mapq(n_pairs),
-            rng.choice(np.asarray([0, 1, 2, n_lib, LIB_INVALID],
-                                  dtype=np.uint8), n_pairs),
-            rng.integers(0, 16, n_pairs).astype(np.uint8),
-        ]),
-        "v_i32": v_i32,
-        "v_u8": rng.integers(0, 2, (len(VARS_BOOL), n_var)).astype(np.uint8),
-    }
-    return compact, dens, n_var
+EDGE = {name: (c, dens, n_var) for name, c, dens, n_var in edge_compacts()}
 
 
-@pytest.fixture(params=["synthetic", "real", "adversarial"])
+@pytest.fixture(params=["synthetic", "real", "adversarial",
+                        *("edge: " + name for name in EDGE_SEGMENTS)])
 def compact_case(request):
     """→ (compact matrices, dens float32, n_var)."""
     if request.param == "adversarial":
         return adversarial_compact()
+    if request.param.startswith("edge: "):
+        return EDGE[request.param[len("edge: "):]]
     if request.param == "synthetic":
         chunk, dens = make_synthetic_chunk(n_var=8, frags_per_var=6)
     else:
@@ -205,7 +249,9 @@ def test_kernel_model_matches_plain(compact_case, route):
     assert got.dtype == torch.float32 and got.shape == (n_var, 5)
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))
-    assert want.any()
+    # all zero exactly where no row is real (the padding-only edge chunk)
+    real = (c["cr_u16"] < n_var).any() or (c["cp_u16"] < n_var).any()
+    assert want.any() == real
 
 
 def test_adversarial_chunk_reaches_every_branch():
@@ -221,6 +267,49 @@ def test_adversarial_chunk_reaches_every_branch():
     counts = kernel_model(*pack_wire(c), dens, n_var)
     assert (counts[[5, 6, n_var - 1]] == 0).all()
     assert (counts[:, 3] < 0).any() or (counts[:, 3] == 0).any()
+
+
+def test_edge_chunks_are_what_they_say():
+    """Each edge chunk's segments have the lengths ``EDGE_SEGMENTS``
+    names, in variant order, each that starts past row 0 starting off a
+    multiple of 32; padding rows follow at n_var."""
+    for name, (c, dens, n_var) in EDGE.items():
+        for key, lengths in zip(("cr_u16", "cp_u16"), EDGE_SEGMENTS[name]):
+            var = c[key][0]
+            got = np.bincount(var, minlength=n_var + 1)
+            assert got[:n_var].tolist() == lengths, (name, key)
+            assert 5 <= got[n_var] == len(var) - sum(lengths), (name, key)
+            starts = np.cumsum([0] + lengths[:-1])
+            assert (starts[starts > 0] % 32 != 0).all(), (name, key)
+        assert n_var % 2 == 1  # 2·n_var warps: not a whole number of blocks
+    lengths = {n for pair in EDGE_SEGMENTS.values() for t in pair for n in t}
+    assert {0, 1, 31, 32, 33, 63, 64, 65} <= lengths
+    assert max(lengths) > 2000
+
+
+@pytest.mark.parametrize("name", list(EDGE_SEGMENTS))
+def test_warp_search_matches_searchsorted(name):
+    c, _, n_var = EDGE[name]
+    for key in ("cr_u16", "cp_u16"):
+        var = c[key][0]
+        want = np.searchsorted(var, np.arange(n_var + 1), side="left")
+        got = [warp_search(var, v) for v in range(n_var + 1)]
+        assert got == want.tolist(), (name, key)
+
+
+def test_warp_search_on_a_chunk_of_real_size():
+    """~175 pair rows a variant, as a 30x sample's 1,024-variant chunk
+    has, some segments empty, padding rows at n_var: several rounds."""
+    rng = np.random.default_rng(11)
+    n_var = 1024
+    lengths = rng.poisson(175, n_var)
+    lengths[rng.integers(0, n_var, 40)] = 0
+    var = np.repeat(np.arange(n_var + 1),
+                    np.append(lengths, 77)).astype(np.uint16)
+    want = np.searchsorted(var, np.arange(n_var + 2), side="left")
+    got = [warp_search(var, v) for v in range(n_var + 2)]
+    assert got == want.tolist()
+    assert warp_search(var[:0], 0) == 0
 
 
 def _random_mats(r=384, f=96, v=10, seed=0):
@@ -336,6 +425,71 @@ def test_engine_counts_classify_launches(tmp_path, monkeypatch):
     assert st["classify_launches"] == st["gl_launches"] == 0
 
 
+def test_classify_bench_source_specs():
+    assert classify_bench.parse_source("this=") == (
+        "this", classify_bench.THIS)
+    assert classify_bench.parse_source("old=/a/b.cu") == ("old", "/a/b.cu")
+    for bad in ("nolabel", "=x.cu", "v=/a/b.cu=X", "v==X"):
+        with pytest.raises(common.ToolError, match="LABEL=PATH"):
+            classify_bench.parse_source(bad)
+
+
+def test_classify_bench_bound_counts_what_the_kernel_needs():
+    """The bound's bytes, counted row by row: the real rows' columns the
+    kernel reads, each variant's vlen, is_del and counts, each distinct
+    density entry looked up, the table."""
+    c, dens, n_var = adversarial_compact()
+    n_lib, width = dens.shape
+    vlen = c["v_i32"][VARS_I32.index("vlen")]
+    reads = sum(1 for v in c["cr_u16"][0] if v < n_var)
+    pairs, entries = 0, set()
+    for v, ospan, lib in zip(c["cp_u16"][0], c["cp_i32"][0], c["cp_u8"][2]):
+        if v >= n_var:
+            continue
+        pairs += 1
+        disc = int(np.subtract(ospan, vlen[v], dtype=np.int32))
+        for x in (int(ospan), disc):
+            if 0 <= x < width and lib != LIB_INVALID:
+                entries.add((min(int(lib), n_lib - 1), x))
+    want = 5 * reads + 10 * pairs + 25 * n_var + 4 * len(entries) + 1024
+    ms, by, nbytes = classify_bench.bound(c, n_var, dens)
+    assert (nbytes, by) == (want, "bytes")
+    assert ms == pytest.approx(want / 3.35e12 * 1e3)
+
+
+def test_classify_bench_chunks_on_cpu():
+    """The chunks the tool times are the engine's own: on the CPU, for
+    each chunk of the example, the kernel model equals ``classify_wire``
+    bit for bit, and ``chunk_stats`` counts its rows."""
+    sample, bps = fixture.load_sample_and_breakpoints(
+        os.path.join(DATA, "example.sim.sorted.bam"),
+        os.path.join(DATA, "example.vcf"), num_samp=60000)
+    eng = TorchEngine([sample], device="cpu", dtype=torch.float32,
+                      chunk_size=4)
+    dev = torch.device("cpu")
+    dens = eng._dens_for(0, dev)
+    n_chunks = 0
+    for compact, w, geom, n_var in classify_bench.wires(eng, bps, dev):
+        got = classify_wire(w, geom, dens, n_var, torch.float32)
+        want = kernel_model(w.numpy(), geom, dens.numpy(), n_var)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+        st = classify_bench.chunk_stats(compact, n_var)
+        assert st["reads"] == int((compact["cr_u16"] < n_var).sum())
+        assert st["pairs"] == int((compact["cp_u16"] < n_var).sum()) > 0
+        assert max(st["longest_segment"]) <= max(st["reads"], st["pairs"])
+        n_chunks += 1
+    eng.close()
+    assert n_chunks == -(-len(bps) // 4) > 1
+
+
+def test_classify_bench_refuses_without_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert classify_bench.main(["--source", "old=/nowhere.cu"]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """The kernel against the plain version on the card (the check of
@@ -346,6 +500,7 @@ def test_kernel_matches_plain_on_card():
         adversarial_compact(),
         adversarial_compact(seed=4, n_var=1024, n_reads=40_000,
                             n_pairs=20_000, width=1024),
+        *EDGE.values(),
     ):
         wire, geom = pack_wire(c)
         w = torch.from_numpy(wire).cuda()
