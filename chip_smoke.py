@@ -43,7 +43,13 @@ non-zero:
    chunk sharded over every visible card (two shards on ``cuda:0`` when
    there is one card): byte-identical to phase 5's output, with one GL
    launch per shard of every chunk (run 1 carries the first use of any
-   card past ``cuda:0``);
+   card past ``cuda:0``), its prep per chunk beside phase 5's on one
+   shard; then ``TorchEngine`` over the same records on one shard and
+   on those shards, each shard handle's fetches timed, with a decode
+   fan-out that fits every shard's in the usable cores: the shards'
+   fetches of a chunk must overlap, the rows equal one shard's bit for
+   bit, and prep per chunk, fetch time and fetches in flight are
+   logged;
 7. multi-host: two CLI processes joined over gloo (``SVT_DIST_*``) on
    the card(s): rank 0's VCF byte-identical to phase 5's, rank 1's
    empty;
@@ -76,7 +82,9 @@ non-zero:
     step, so no GL launch) at chunk 1024 and 4096 over 1 and 2 shards
     (two on ``cuda:0`` with one card, every card under ``--multi-card``),
     each chunk's wall split into preamble, native fetch, export and the
-    rest, with the native counters and the usable cores; first on phase
+    rest (the parts summed over concurrent shards beside the wall, and
+    the wall with a fetch in flight), with the native counters and the
+    usable cores; first on phase
     5's tiled records, then on the tools' 1,600-event fixture, whose loci
     are distinct (simulated in a child process while phases 3-13 run).
     The chunk count must be ceil(records / size), the reads and pairs
@@ -460,7 +468,8 @@ def stats_line(st):
 
 
 def phase_multidevice(torch, classic, K, wgs):
-    """Phase 6: the CLI twice, each chunk sharded over every card."""
+    """Phase 6: the CLI twice, each chunk sharded over every card; then
+    the shards' concurrent prep (``shard_overlap``)."""
     from svtyper_tpu_torch.parallel.dryrun import dryrun_multichip
 
     bam, tiled, lib, want = wgs
@@ -486,11 +495,105 @@ def phase_multidevice(torch, classic, K, wgs):
               % (r, st["classify_launches"], st["gl_launches"], st["chunks"],
                  len(devices)))
         K.check(6, n_launch)
+        with open(os.path.join(WORK, "stats%d.json" % r)) as fh:
+            one = json.load(fh)
         log("phase 6: run %d: %d shards on %s: byte-identical to phase 5; "
             "%d chunks, %d classify and %d GL launches; %s (whole command "
-            "%.2f s)"
+            "%.2f s); prep per chunk %.3f ms against phase 5's run %d on one "
+            "shard %.3f ms"
             % (r, len(devices), ",".join(devices), st["chunks"],
-               launches["classify"], launches["gl"], stats_line(st), wall))
+               launches["classify"], launches["gl"], stats_line(st), wall,
+               st["prep_s"] / st["chunks"] * 1e3, r,
+               one["prep_s"] / one["chunks"] * 1e3))
+    shard_overlap(torch, K, wgs, devices)
+
+
+def _overlaps(spans) -> bool:
+    """Whether any two of the (start, end) spans intersect."""
+    end = float("-inf")
+    for t0, t1 in sorted(spans):
+        if t0 < end:
+            return True
+        end = max(end, t1)
+    return False
+
+
+def shard_overlap(torch, K, wgs, devices):
+    """Phase 6, engine part: phase 5's records through ``TorchEngine`` on
+    one shard and on ``devices``, each shard handle's ``fetch_chunk``
+    timed. Each handle's decode fan-out is sized so that every shard's
+    fits the usable cores (as ``--cores`` would set it; the auto fan-out
+    of an 8-core host leaves room for one fetch at a time), so the
+    shards' fetches of a chunk must overlap; the rows must equal one
+    shard's bit for bit, with one launch of each kernel per shard of
+    every chunk."""
+    import threading
+
+    import numpy as np
+    from svtyper_tpu_torch.bamio.bam import open_bam
+    from svtyper_tpu_torch.gt.engine import TorchEngine
+    from svtyper_tpu_torch.stats import Sample
+    from svtyper_tpu_torch.tools.profile_prep import span_union
+    from svtyper_tpu_torch.utils import fixture
+
+    bam, tiled, lib, _ = wgs
+    cores = len(os.sched_getaffinity(0))
+    threads = max(1, min(8, cores // len(devices)))
+    _, bps = fixture.load_sample_and_breakpoints(bam, tiled, lib_info=lib)
+    rows, seen = {}, {}
+    for devs in (devices[:1], devices):
+        sample = Sample.from_lib_info(open_bam(bam, threads=threads),
+                                      Sample.load_lib_info(lib))
+        eng = TorchEngine([sample], devices=devs)
+        spans, lock = [], threading.Lock()
+        for h in eng.shard_bams()[0]:
+            def fetch(*a, _fn=h.fetch_chunk, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    with lock:
+                        spans.append((t0, time.perf_counter()))
+            h.fetch_chunk = fetch
+        K.zero()
+        rows[len(devs)] = np.concatenate(
+            [a[0][:n] for n, a in eng.genotype_stream(bps, raw=True)])
+        st = dict(eng.stats)
+        eng.close()
+        K.check(6, st["chunks"] * len(devs))
+        check(st["classify_launches"] == st["gl_launches"]
+              == st["chunks"] * len(devs), "phase 6: the engine counted %d "
+              "classify and %d GL launches for %d chunks x %d shards"
+              % (st["classify_launches"], st["gl_launches"], st["chunks"],
+                 len(devs)))
+        check(len(spans) == st["chunks"] * len(devs), "phase 6: %d fetches "
+              "for %d chunks x %d shards" % (len(spans), st["chunks"],
+                                             len(devs)))
+        # _prepare runs on one prep thread: a chunk's fetches all end
+        # before the next chunk's begin
+        spans.sort()
+        chunks = [spans[i:i + len(devs)]
+                  for i in range(0, len(spans), len(devs))]
+        fetch_s = sum(t1 - t0 for t0, t1 in spans)
+        union_s = sum(span_union(c) for c in chunks)
+        seen[len(devs)] = (st, fetch_s, union_s,
+                           sum(_overlaps(c) for c in chunks))
+    (st1, f1, _, _), (stn, fn, un, over) = seen[1], seen[len(devices)]
+    check(rows[len(devices)].tobytes() == rows[1].tobytes(),
+          "phase 6: %d shards' rows differ from one shard's" % len(devices))
+    check(over > 0, "phase 6: the %d shards' fetches never overlapped in %d "
+          "chunks" % (len(devices), stn["chunks"]))
+    log("phase 6: engine, %d records, %d decode threads per handle (%d "
+        "usable cores of %d): one shard prep %.3f ms per chunk (fetch %.3f "
+        "ms); %d shards prep %.3f ms per chunk (fetches %.3f ms summed, "
+        "%.3f ms with one or more in flight, %.2f in flight on average); "
+        "%d of %d chunks' shard fetches overlapped; rows bit-identical to "
+        "one shard's"
+        % (len(bps), threads, cores, os.cpu_count(),
+           st1["prep_s"] / st1["chunks"] * 1e3, f1 / st1["chunks"] * 1e3,
+           len(devices), stn["prep_s"] / stn["chunks"] * 1e3,
+           fn / stn["chunks"] * 1e3, un / stn["chunks"] * 1e3, fn / un,
+           over, stn["chunks"]))
 
 
 def free_port() -> int:
@@ -942,16 +1045,19 @@ def _prep_line(name, r):
         "phase 14: %s, chunk %d x %d shard(s) on %d card(s): %d chunks, "
         "prep %.1f variants/s (%.6f s); per chunk ms, median (p90): wall "
         "%.3f (%.3f), preamble %.3f (%.3f), fetch %.3f (%.3f), export %.3f "
-        "(%.3f), other %.3f (%.3f); native: inflate %.6f s wall, %.6f s "
-        "CPU, workers %.6f s, %d blocks, %d cache hits, %d bytes "
+        "(%.3f), the three summed %.3f (%.3f), other %.3f (%.3f), wall "
+        "with a fetch in flight %.3f (%.3f); native: inflate %.6f s wall, "
+        "%.6f s CPU, workers %.6f s, %d blocks, %d cache hits, %d bytes "
         "inflated; %d reads, %d pairs; %d usable cores" % (
             name, r["chunk_size"], r["shards"], r["cards"], r["chunks"],
             r["prep_variants_per_s"], r["wall_s"], med["wall_ms"],
             p90["wall_ms"], med["preamble_ms"], p90["preamble_ms"],
             med["fetch_ms"], p90["fetch_ms"], med["export_ms"],
-            p90["export_ms"], med["other_ms"], p90["other_ms"],
-            nat["inflate_s"], nat["inflate_cpu_s"], nat["worker_s"],
-            nat["blocks"], nat["cache_hits"], nat["inflate_bytes"],
+            p90["export_ms"], med["parts_ms"], p90["parts_ms"],
+            med["other_ms"], p90["other_ms"], med["fetch_union_ms"],
+            p90["fetch_union_ms"], nat["inflate_s"], nat["inflate_cpu_s"],
+            nat["worker_s"], nat["blocks"], nat["cache_hits"],
+            nat["inflate_bytes"],
             r["reads"], r["pairs"], r["usable_cores"]))
 
 
@@ -990,6 +1096,7 @@ def phase_prep(torch, K, common, profile_prep, wgs, sim):
                                  devices=devices)
             for chunk in profile_prep.chunks_of(bps, r["chunk_size"]):
                 engine._prepare(chunk)
+            engine.close()
             check((engine.stats["reads"], engine.stats["pairs"])
                   == (r["reads"], r["pairs"]),
                   "phase 14: %s reads/pairs %d/%d, unwrapped %d/%d"

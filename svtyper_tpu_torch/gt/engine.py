@@ -2,7 +2,9 @@
 
 Counterpart of ``svtyper_tpu.gt.engine.TpuEngine``. The host prepares
 each chunk's compact wire (native ``svt_fetch_chunk`` through
-``evidence/extract.py``), one per device shard, ships each as
+``evidence/extract.py``), one per device shard (with several devices
+the shards of a chunk fetch concurrently, each on a BAM handle of its
+own), ships each as
 ONE uint8 buffer and one host-to-device copy, and one device step per
 shard runs the classifier on the wire and then the GL stage, producing
 the packed ``[N,24]`` rows that ``cli/fast_emit.py`` formats: on CUDA
@@ -29,12 +31,16 @@ sign.
 
 from __future__ import annotations
 
+import copy
+import os
 import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from svtyper_tpu_torch.bamio.bam import BamFile
 from svtyper_tpu_torch.bamio.native import require_lib
 from svtyper_tpu_torch.breakpoints import Breakpoint
 from svtyper_tpu_torch.evidence.extract import (
@@ -143,6 +149,24 @@ def _resolve_device(device, dtype):
     return device, dtype
 
 
+def _reopen(bam) -> Optional[BamFile]:
+    """A second handle on ``bam``'s file, with its own native arena and
+    block cache, sharing the indexes ``bam`` parsed (read-only tables:
+    a handle of its own would parse the ``.bai`` again, and rescan the
+    BAM for its fine index where the ``.fidx.npz`` sidecar cannot be
+    written). None where a second handle is not cheap or would not
+    fetch concurrently: CRAM (no native chunk fetch) and a ``BamFile``
+    on the pure-Python decoder (GIL-bound)."""
+    if type(bam) is not BamFile or bam._get_native() is None:
+        return None
+    h = BamFile(bam.path, use_native=True, threads=bam._threads)
+    fine = bam._get_fineidx()
+    h._fineidx, h._fineidx_failed = fine, fine is None
+    # without a fine index every fetch takes the BAI's ranges
+    h._bai = bam.bai if fine is None else bam._bai
+    return h
+
+
 def local_cuda_devices() -> List[torch.device]:
     """Every CUDA device this process sees (``jax.local_devices()``'s
     counterpart); raises when there is none."""
@@ -163,7 +187,11 @@ class TorchEngine:
     // n_dev`` variants, one per device, and the chunk size is rounded
     up to a multiple of the device count; a one-device engine is the
     same path with one shard, so the JAX engine's ``force_shard`` has
-    no counterpart here."""
+    no counterpart here. With several devices the shards of a chunk
+    are prepped concurrently over the prep pool, shard 0 on the
+    sample's BAM handle and shard d ≥ 1 on a second handle of the same
+    file (``_shard_views``), opened at the first sharded prep and
+    released by ``close()``."""
 
     def __init__(
         self,
@@ -209,7 +237,9 @@ class TorchEngine:
         self._dens_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
         self._hw_reads = 0
         self._hw_pairs = 0
-        self._sample_pool = None  # lazy; multi-sample prep fan-out
+        self._prep_pool = None  # lazy; samples' and shards' prep fan-out
+        self._views = None  # lazy; see _shard_views
+        self._views_evidence = False  # -w export on the shard handles
         # -w evidence export: when set, called as sink(sample_idx, ev)
         # once per (chunk, sample) from the prep thread(s); ev is the
         # native chunk_evidence() tuple (shards merged), or None when
@@ -286,27 +316,33 @@ class TorchEngine:
         """Host-only stage: fetch + layout for one chunk → per-sample
         lists of per-shard payloads. Runs on a single prep thread; the
         C++ decode inside releases the GIL and fans out over its own
-        threads. The numpy predicate pass of the non-native path runs in
-        ``_send`` instead, on the main thread, overlapping the next
-        chunk's native fetch."""
+        threads. Several samples or shards fan out further over the
+        prep pool (``_prepare_shards``). The numpy predicate pass of
+        the non-native path runs in ``_send`` instead, on the main
+        thread, overlapping the next chunk's native fetch."""
         t0 = time.time()
         n_real = len(bps)
         # constant chunk geometry: pad short chunks with absent variants
         # and reuse high-water read/pair buckets
         if len(bps) < self.chunk_size:
             bps = list(bps) + [None] * (self.chunk_size - len(bps))
-        # every Sample owns its own BAM handle (separate native arena +
-        # block cache) and the C++ decode drops the GIL, so per-sample
-        # fetches overlap on multi-core hosts
-        if len(self.samples) > 1:
-            outs = list(
-                self._get_sample_pool().map(
-                    lambda t: self._prepare_sharded(t[1], bps, t[0]),
-                    enumerate(self.samples),
-                )
-            )
+        if self.n_dev > 1:
+            outs = self._prepare_shards(bps)
         else:
-            outs = [self._prepare_sharded(self.samples[0], bps, 0)]
+            def one(t):
+                si, sample = t
+                return self._merge_shards(
+                    si, [self._prepare_shard(sample, bps)]
+                )
+
+            # every Sample owns its own BAM handle (separate native
+            # arena + block cache) and the C++ decode drops the GIL, so
+            # per-sample fetches overlap on multi-core hosts
+            samples = enumerate(self.samples)
+            outs = list(
+                self._get_prep_pool().map(one, samples)
+                if len(self.samples) > 1 else map(one, samples)
+            )
         payloads = []
         for shards, n_ev, n_pair, r_w, p_w in outs:
             self._hw_reads = max(self._hw_reads, r_w)
@@ -319,18 +355,38 @@ class TorchEngine:
         self.stats["variants"] += n_real
         return payloads
 
-    def _prepare_sharded(self, sample: Sample, bps, si: int = 0):
-        """One sample's chunk → ``(shard payloads, n_ev, n_pair,
-        r_width, p_width)``: ``n_dev`` contiguous shards of
-        ``chunk_size // n_dev`` variants, prepped serially (the native
-        arena allows one fetch in flight per BAM handle). Stateless, so
-        samples fan out over the prep pool; the caller owns high-water
-        and stats updates."""
+    def _prepare_shards(self, bps):
+        """Every sample's chunk as ``n_dev`` contiguous shards of
+        ``chunk_size // n_dev`` variants → one ``_merge_shards`` tuple
+        per sample. The native arena allows one fetch in flight per BAM
+        handle, so the shards run as one prep-pool job per handle: each
+        shard on a handle of its own runs alone, concurrently with the
+        others; a sample that kept one handle (``_shard_views``) preps
+        its shards one after another on it. Reads the high-water
+        buckets and leaves them to the caller."""
         n_shard = self.chunk_size // self.n_dev
-        parts = [
-            self._prepare_shard(sample, bps[d * n_shard: (d + 1) * n_shard])
-            for d in range(self.n_dev)
-        ]
+        jobs: Dict[int, list] = {}
+        for si, views in enumerate(self._shard_views()):
+            for d, view in enumerate(views):
+                jobs.setdefault(id(view.bam), []).append((si, d, view))
+
+        def run(job):
+            return [
+                (si, d, self._prepare_shard(
+                    view, bps[d * n_shard: (d + 1) * n_shard]))
+                for si, d, view in job
+            ]
+
+        parts = [[None] * self.n_dev for _ in self.samples]
+        for done in self._get_prep_pool().map(run, jobs.values()):
+            for si, d, part in done:
+                parts[si][d] = part
+        return [self._merge_shards(si, p) for si, p in enumerate(parts)]
+
+    def _merge_shards(self, si: int, parts):
+        """One sample's ``_prepare_shard`` results, in shard order →
+        ``(shard payloads, n_ev, n_pair, r_width, p_width)``; hands the
+        shards' evidence, concatenated in shard order, to the -w sink."""
         if self.evidence_sink is not None:
             evs = [p[5] for p in parts]
             self.evidence_sink(
@@ -389,17 +445,60 @@ class TorchEngine:
             len(chunk.reads["var"]), len(chunk.pairs["var"]), None,
         )
 
-    def _get_sample_pool(self):
-        """Lazy multi-sample prep pool (SURVEY.md §3.1: the reference's
+    def _shard_views(self) -> List[List[Sample]]:
+        """Per sample, the ``Sample`` each of the ``n_dev`` shards preps
+        through. Shard 0 takes the sample itself; shard d ≥ 1 a shallow
+        copy whose ``bam`` is a second handle on the file (``_reopen``),
+        so the shards fetch concurrently; a sample whose handle cannot
+        be reopened cheaply (CRAM, the pure-Python decoder) keeps it for
+        every shard, prepped serially as with one handle. The handles
+        open at the first sharded prep; their -w evidence export
+        follows ``evidence_sink`` (the CLI toggles the samples' own)."""
+        if self._views is None:
+            views = []
+            for s in self.samples:
+                extra = []
+                for _ in range(self.n_dev - 1):
+                    h = _reopen(s.bam)
+                    if h is None:
+                        break
+                    view = copy.copy(s)
+                    view.bam = h
+                    extra.append(view)
+                views.append([s] + extra if extra else [s] * self.n_dev)
+            self._views = views
+            self._views_evidence = False
+            # each handle holds a native block cache, and the cache
+            # budget is split across every open one: close() drops them,
+            # the finalizer covers dropped engines
+            self._views_finalizer = weakref.finalize(self, views.clear)
+        want = self.evidence_sink is not None
+        if want != self._views_evidence:
+            for views in self._views:
+                for view in views[1:]:
+                    if view.bam is not views[0].bam:
+                        view.bam.set_evidence_export(want)
+            self._views_evidence = want
+        return self._views
+
+    def shard_bams(self) -> List[List]:
+        """Per sample, the BAM handle each shard preps on (opening the
+        shards' handles as the first sharded prep does)."""
+        if self.n_dev == 1:
+            return [[s.bam] for s in self.samples]
+        return [[v.bam for v in views] for views in self._shard_views()]
+
+    def _get_prep_pool(self):
+        """Lazy prep pool: several samples on one device, or every
+        sample's shards on several (SURVEY.md §3.1: the reference's
         classic.py gathers samples serially)."""
         from concurrent.futures import ThreadPoolExecutor
 
-        if self._sample_pool is None:
-            import os
-
+        if self._prep_pool is None:
             # auto-size against the decode fan-out: each concurrent
-            # prep launches its sample's native decode threads, so the
-            # two knobs must share the host, not each assume they own it
+            # prep launches its handle's native decode threads, so the
+            # two knobs must share the host's usable cores, not each
+            # assume they own them
             dec = max(
                 (getattr(s.bam, "_threads", 1) for s in self.samples),
                 default=1,
@@ -410,20 +509,18 @@ class TorchEngine:
                 or max(
                     1,
                     min(
-                        len(self.samples),
-                        (os.cpu_count() or 2) // max(dec, 1),
+                        len(self.samples) * self.n_dev,
+                        len(os.sched_getaffinity(0)) // max(dec, 1),
                     ),
                 )
             )
-            self._sample_pool = ThreadPoolExecutor(max_workers=workers)
+            self._prep_pool = ThreadPoolExecutor(max_workers=workers)
             # the pool must not outlive the engine (close() is the
             # explicit path; the finalizer covers dropped engines)
-            import weakref
-
             self._pool_finalizer = weakref.finalize(
-                self, self._sample_pool.shutdown, wait=False
+                self, self._prep_pool.shutdown, wait=False
             )
-        return self._sample_pool
+        return self._prep_pool
 
     def _to_device(self, wire: np.ndarray, dev: torch.device) -> torch.Tensor:
         """One host→device copy of a shard's wire. On CUDA the wire is
@@ -499,12 +596,16 @@ class TorchEngine:
         ]
 
     def close(self) -> None:
-        """Release host-side resources (the multi-sample prep pool).
-        Idempotent; the engine remains usable afterwards (the pool is
-        rebuilt lazily if needed)."""
-        if self._sample_pool is not None:
-            self._sample_pool.shutdown(wait=False)
-            self._sample_pool = None
+        """Release host-side resources: the prep pool and the shards'
+        extra BAM handles, whose block caches shrink every other open
+        handle's. Idempotent; the engine remains usable afterwards (both
+        are rebuilt lazily if needed)."""
+        if self._prep_pool is not None:
+            self._prep_pool.shutdown(wait=False)
+            self._prep_pool = None
+        if self._views is not None:
+            self._views_finalizer()
+            self._views = None
 
     def __enter__(self) -> "TorchEngine":
         return self

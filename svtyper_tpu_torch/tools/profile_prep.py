@@ -8,8 +8,9 @@ or ``k`` distinct cards where the host has them, as
 ``tools/scaling_curve`` picks them) on a new BAM handle, so with an
 empty block cache, preps the first chunk to warm up, then
 ``engine._prepare`` is timed over every chunk of the VCF: the engine's
-host stage alone, with ``_prepare_sharded``'s serial shards and the
-native ``prepare_compact_chunk``. The device step does not run. The
+host stage alone, the native ``prepare_compact_chunk`` of each shard,
+the shards fetching concurrently, each on its own BAM handle
+(``TorchEngine.shard_bams``). The device step does not run. The
 first timed chunk repeats the warm-up's; on a VCF whose loci repeat
 (a tiled one) every block is then cached, on distinct loci each later
 chunk inflates its own (the ``blocks`` counter says which).
@@ -20,11 +21,20 @@ and removed after it, into
 - ``preamble_ms``: ``evidence/extract.py::_chunk_preamble`` plus
   ``_pack_variant_tables`` (typed variant columns, fetch windows, the
   fetch filter);
-- ``fetch_ms``: the BAM handle's ``fetch_chunk``, the native
+- ``fetch_ms``: every shard handle's ``fetch_chunk``, the native
   ``svt_fetch_chunk`` (inflate, decode, the predicate pass);
 - ``export_ms``: the ``export(...)`` callable that fetch returns, which
   copies the arena into the padded compact matrices;
-- ``other_ms``: the rest (buffer allocation, the engine's bookkeeping).
+- ``other_ms``: the wall less ``parts_ms``, the three parts summed over
+  the shards: the rest (buffer allocation, the engine's bookkeeping)
+  while the parts run one at a time, negative once concurrent shards'
+  parts add up to more than the wall.
+
+Beside them each chunk reports ``fetches`` (``fetch_chunk`` calls),
+``fetch_union_ms`` (the wall during which at least one fetch ran, so
+``fetch_ms / fetch_union_ms`` is the mean number in flight) and
+``max_in_flight`` (the most parts timed at once: 1 when the shards ran
+one after another).
 
 Per (chunk size, shards) it reports the median and p90 of each part over
 chunks, prep variants/s, reads and pairs, the native counters drained
@@ -52,6 +62,7 @@ import io
 import os
 import pstats
 import sys
+import threading
 import time
 from typing import Iterable, List, Optional, Tuple
 
@@ -79,22 +90,37 @@ class _Split:
     """Times the parts of each ``prepare_compact_chunk`` call from
     outside: wraps ``extract._chunk_preamble`` and
     ``extract._pack_variant_tables`` (module globals, called by global
-    name) and the BAM handle's ``fetch_chunk`` (an instance attribute
+    name) and each BAM handle's ``fetch_chunk`` (an instance attribute
     shadowing the method), and the ``export`` each fetch returns (never
     re-called: a second export after the next fetch would read an
-    overwritten arena). Every wrapper returns what it wrapped returned."""
+    overwritten arena). Every wrapper returns what it wrapped returned;
+    the wrappers may run on several prep threads at once."""
 
-    def __init__(self, bam):
-        self.bam = bam
+    def __init__(self, bams):
+        self.bams = bams
+        self._lock = threading.Lock()
+        self._reset()
+
+    def _reset(self):
         self.ms = dict.fromkeys(PARTS[:3], 0.0)
+        self.fetch_spans = []
+        self.in_flight = self.max_in_flight = 0
 
     def _timed(self, fn, part):
         def wrapper(*args, **kwargs):
+            with self._lock:
+                self.in_flight += 1
+                self.max_in_flight = max(self.max_in_flight, self.in_flight)
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
-                self.ms[part] += (time.perf_counter() - t0) * 1e3
+                t1 = time.perf_counter()
+                with self._lock:
+                    self.in_flight -= 1
+                    self.ms[part] += (t1 - t0) * 1e3
+                    if part == "fetch_ms":
+                        self.fetch_spans.append((t0, t1))
         return wrapper
 
     def _fetch(self, fetch):
@@ -109,29 +135,46 @@ class _Split:
 
     def __enter__(self):
         self._orig = (extract._chunk_preamble, extract._pack_variant_tables)
-        common.check("fetch_chunk" not in vars(self.bam),
-                     "the BAM handle's fetch_chunk is already wrapped")
+        for bam in self.bams:
+            common.check("fetch_chunk" not in vars(bam),
+                         "a BAM handle's fetch_chunk is already wrapped")
         extract._chunk_preamble = self._timed(self._orig[0], "preamble_ms")
         extract._pack_variant_tables = self._timed(self._orig[1],
                                                    "preamble_ms")
-        self.bam.fetch_chunk = self._fetch(self.bam.fetch_chunk)
+        for bam in self.bams:
+            bam.fetch_chunk = self._fetch(bam.fetch_chunk)
         return self
 
     def __exit__(self, *exc):
         extract._chunk_preamble, extract._pack_variant_tables = self._orig
-        del self.bam.fetch_chunk
+        for bam in self.bams:
+            del bam.fetch_chunk
 
     def removed(self) -> bool:
         """True once every wrapper is gone again."""
         return (extract._chunk_preamble is self._orig[0]
                 and extract._pack_variant_tables is self._orig[1]
-                and "fetch_chunk" not in vars(self.bam))
+                and not any("fetch_chunk" in vars(b) for b in self.bams))
 
     def take(self, wall_ms: float) -> dict:
-        """This chunk's parts (other = wall - the rest); resets them."""
-        out = dict(self.ms, other_ms=wall_ms - sum(self.ms.values()))
-        self.ms = dict.fromkeys(PARTS[:3], 0.0)
+        """This chunk's parts (other = wall - their sum), its fetches
+        and their union; resets them."""
+        parts = sum(self.ms.values())
+        out = dict(self.ms, parts_ms=parts, other_ms=wall_ms - parts,
+                   fetches=len(self.fetch_spans),
+                   fetch_union_ms=span_union(self.fetch_spans) * 1e3,
+                   max_in_flight=self.max_in_flight)
+        self._reset()
         return out
+
+
+def span_union(spans) -> float:
+    """The length of the union of ``(start, end)`` spans."""
+    total, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        total += max(t1 - max(t0, end), 0.0)
+        end = max(end, t1)
+    return total
 
 
 def chunks_of(bps, size: int) -> List[list]:
@@ -172,7 +215,9 @@ def _native_pass(sample, bps, cs, devices):
         engine.stats[key] = 0
     native.perf_counters()  # drain what the warm-up left
     per_chunk = []
-    with _Split(sample.bam) as split:
+    bams = list({id(b): b for views in engine.shard_bams()
+                 for b in views}.values())
+    with _Split(bams) as split:
         for chunk in chunks:
             t0 = time.perf_counter()
             engine._prepare(chunk)
@@ -186,7 +231,8 @@ def _native_pass(sample, bps, cs, devices):
     common.check(st["classify_launches"] == st["gl_launches"] == 0,
                  "the device step ran")
     wall_s = sum(r["wall_ms"] for r in per_chunk) / 1e3
-    med, p90 = _quantiles(per_chunk, ("wall_ms",) + PARTS)
+    med, p90 = _quantiles(per_chunk, ("wall_ms",) + PARTS + (
+        "parts_ms", "fetch_union_ms"))
     return {
         "path": "native", "chunk_size": engine.chunk_size,
         "shards": len(devices), "cards": len(set(devices)),

@@ -4,8 +4,9 @@ counterparts.
 - ``tools.profile_prep``, native path, at chunk 128 over one and two
   shards: each chunk's compact wire identical, array for array, to the
   JAX ``prepare_compact_chunk``'s, the wrapped run's wires identical to
-  an unwrapped ``TorchEngine._prepare``'s, the parts of each chunk no
-  more than its wall, and the wrappers gone after the run; Python path:
+  an unwrapped ``TorchEngine._prepare``'s, one fetch per shard handle,
+  the parts of each chunk no more than its wall when they ran one at a
+  time, and the wrappers gone after the run; Python path:
   its chunks equal the JAX ``prepare_chunk``'s;
 - ``tools.parity_diff`` against ``scripts/parity_diff.py``: the same
   stdout and exit code on five VCF pairs;
@@ -142,9 +143,17 @@ def test_profile_prep_native_wires_match_jax(shards, sample_files,
     assert len(res["per_chunk"]) == n_chunks
     for part in res["per_chunk"]:
         assert min(part[k] for k in profile_prep.PARTS[:3]) > 0
-        assert sum(part[k] for k in profile_prep.PARTS[:3]) \
-            <= part["wall_ms"]
-        assert part["other_ms"] >= 0
+        parts = sum(part[k] for k in profile_prep.PARTS[:3])
+        assert part["parts_ms"] == pytest.approx(parts)
+        assert part["other_ms"] == pytest.approx(part["wall_ms"] - parts)
+        # every shard's handle is wrapped: one fetch per shard
+        assert part["fetches"] == shards
+        assert 0 < part["fetch_union_ms"] <= part["wall_ms"]
+        assert part["fetch_union_ms"] <= part["fetch_ms"] * (1 + 1e-9)
+        assert 1 <= part["max_in_flight"] <= shards
+        if part["max_in_flight"] == 1:  # the parts ran one at a time
+            assert parts <= part["wall_ms"]
+            assert part["other_ms"] >= 0
     # the warm-up chunk, the timed pass, then the cProfile passes
     assert len(seen) == (1 + (1 + profile_prep.PROFILE_PASSES) * n_chunks)
     timed = [_wires(p) for p in seen[1:1 + n_chunks]]
