@@ -546,7 +546,7 @@ def shard_overlap(torch, K, wgs, devices):
                                       Sample.load_lib_info(lib))
         eng = TorchEngine([sample], devices=devs)
         spans, lock = [], threading.Lock()
-        for h in eng.shard_bams()[0]:
+        for h in {id(h): h for h in eng.shard_bams()[0]}.values():
             def fetch(*a, _fn=h.fetch_chunk, **kw):
                 t0 = time.perf_counter()
                 try:

@@ -165,7 +165,9 @@ def sv_genotype(
         proc_id, n_procs = 0, 1
     bam_paths = [b for b in bam_string.split(",") if b]
     # --cores drives the native decoder's per-fetch thread fan-out (the
-    # role of the reference sso's fork pool: host-side parallelism)
+    # role of the reference sso's fork pool: host-side parallelism); the
+    # engine then runs as many handles' preps at once as the usable
+    # cores hold at that fan-out
     bams = [open_bam(p, threads=cores, ref_fasta=ref_fasta)
             for p in bam_paths]
 
@@ -205,8 +207,7 @@ def sv_genotype(
             samples, min_aligned=min_aligned, split_weight=split_weight,
             disc_weight=disc_weight, max_reads=max_reads,
             max_ci_dist=max_ci_dist, chunk_size=batch_size,
-            prep_workers=cores, device=device, dtype=dtype,
-            devices=devices,
+            device=device, dtype=dtype, devices=devices,
         )
         if engine.chunk_size != batch_size:
             # multi-device engines round the chunk size up to a device

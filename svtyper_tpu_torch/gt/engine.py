@@ -156,7 +156,14 @@ def _reopen(bam) -> Optional[BamFile]:
     BAM for its fine index where the ``.fidx.npz`` sidecar cannot be
     written). None where a second handle is not cheap or would not
     fetch concurrently: CRAM (no native chunk fetch) and a ``BamFile``
-    on the pure-Python decoder (GIL-bound)."""
+    on the pure-Python decoder (GIL-bound).
+
+    ``BamFile`` has no public way to hand a parsed index to a new
+    handle, so this reads and sets its private ``_threads``,
+    ``_get_native()``, ``_get_fineidx()``, ``_fineidx``,
+    ``_fineidx_failed`` and ``_bai``.
+    ``tests/test_torch_shard_prep.py::test_reopen_pins_the_bamfile_internals``
+    fails when one of them stops doing what this relies on."""
     if type(bam) is not BamFile or bam._get_native() is None:
         return None
     h = BamFile(bam.path, use_native=True, threads=bam._threads)
@@ -189,9 +196,9 @@ class TorchEngine:
     same path with one shard, so the JAX engine's ``force_shard`` has
     no counterpart here. With several devices the shards of a chunk
     are prepped concurrently over the prep pool, shard 0 on the
-    sample's BAM handle and shard d ≥ 1 on a second handle of the same
-    file (``_shard_views``), opened at the first sharded prep and
-    released by ``close()``."""
+    sample's BAM handle and the others on more handles of the same
+    file, as many as the pool runs at once (``_shard_views``), opened
+    at the first prep and released by ``close()``."""
 
     def __init__(
         self,
@@ -326,23 +333,7 @@ class TorchEngine:
         # and reuse high-water read/pair buckets
         if len(bps) < self.chunk_size:
             bps = list(bps) + [None] * (self.chunk_size - len(bps))
-        if self.n_dev > 1:
-            outs = self._prepare_shards(bps)
-        else:
-            def one(t):
-                si, sample = t
-                return self._merge_shards(
-                    si, [self._prepare_shard(sample, bps)]
-                )
-
-            # every Sample owns its own BAM handle (separate native
-            # arena + block cache) and the C++ decode drops the GIL, so
-            # per-sample fetches overlap on multi-core hosts
-            samples = enumerate(self.samples)
-            outs = list(
-                self._get_prep_pool().map(one, samples)
-                if len(self.samples) > 1 else map(one, samples)
-            )
+        outs = self._prepare_shards(bps)
         payloads = []
         for shards, n_ev, n_pair, r_w, p_w in outs:
             self._hw_reads = max(self._hw_reads, r_w)
@@ -360,10 +351,11 @@ class TorchEngine:
         ``chunk_size // n_dev`` variants → one ``_merge_shards`` tuple
         per sample. The native arena allows one fetch in flight per BAM
         handle, so the shards run as one prep-pool job per handle: each
-        shard on a handle of its own runs alone, concurrently with the
-        others; a sample that kept one handle (``_shard_views``) preps
-        its shards one after another on it. Reads the high-water
-        buckets and leaves them to the caller."""
+        sample, and each shard on a handle of its own, runs alone,
+        concurrently with the others (the C++ decode drops the GIL); a
+        sample that kept one handle (``_shard_views``), or two samples
+        on one handle, prep one after another on it. Reads the
+        high-water buckets and leaves them to the caller."""
         n_shard = self.chunk_size // self.n_dev
         jobs: Dict[int, list] = {}
         for si, views in enumerate(self._shard_views()):
@@ -377,8 +369,10 @@ class TorchEngine:
                 for si, d, view in job
             ]
 
+        # one job (one device, one sample) runs here, with no pool hop
+        fan_out = self._get_prep_pool().map if len(jobs) > 1 else map
         parts = [[None] * self.n_dev for _ in self.samples]
-        for done in self._get_prep_pool().map(run, jobs.values()):
+        for done in fan_out(run, jobs.values()):
             for si, d, part in done:
                 parts[si][d] = part
         return [self._merge_shards(si, p) for si, p in enumerate(parts)]
@@ -447,25 +441,32 @@ class TorchEngine:
 
     def _shard_views(self) -> List[List[Sample]]:
         """Per sample, the ``Sample`` each of the ``n_dev`` shards preps
-        through. Shard 0 takes the sample itself; shard d ≥ 1 a shallow
-        copy whose ``bam`` is a second handle on the file (``_reopen``),
-        so the shards fetch concurrently; a sample whose handle cannot
-        be reopened cheaply (CRAM, the pure-Python decoder) keeps it for
-        every shard, prepped serially as with one handle. The handles
-        open at the first sharded prep; their -w evidence export
-        follows ``evidence_sink`` (the CLI toggles the samples' own)."""
+        through: the sample itself and shallow copies whose ``bam`` is
+        another handle on the file (``_reopen``), one handle per shard
+        where the prep pool runs that many jobs per sample at once, the
+        shards in contiguous runs over fewer where it does not (a handle
+        that never fetches beside the others would only split the cache
+        budget). Shard 0 is always the sample's own. A sample whose
+        handle cannot be reopened cheaply (CRAM, the pure-Python
+        decoder) keeps it for every shard, prepped serially; one device
+        opens no handle. The handles open at the first prep; their -w
+        evidence export follows ``evidence_sink`` (the CLI toggles the
+        samples' own)."""
         if self._views is None:
+            n_h = min(self.n_dev,
+                      max(1, self._prep_width() // len(self.samples)))
             views = []
             for s in self.samples:
-                extra = []
-                for _ in range(self.n_dev - 1):
+                own = [s]
+                for _ in range(n_h - 1):
                     h = _reopen(s.bam)
                     if h is None:
                         break
                     view = copy.copy(s)
                     view.bam = h
-                    extra.append(view)
-                views.append([s] + extra if extra else [s] * self.n_dev)
+                    own.append(view)
+                views.append([own[d * len(own) // self.n_dev]
+                              for d in range(self.n_dev)])
             self._views = views
             self._views_evidence = False
             # each handle holds a native block cache, and the cache
@@ -475,18 +476,39 @@ class TorchEngine:
         want = self.evidence_sink is not None
         if want != self._views_evidence:
             for views in self._views:
-                for view in views[1:]:
-                    if view.bam is not views[0].bam:
-                        view.bam.set_evidence_export(want)
+                for bam in {id(v.bam): v.bam for v in views
+                            if v is not views[0]}.values():
+                    bam.set_evidence_export(want)
             self._views_evidence = want
         return self._views
 
     def shard_bams(self) -> List[List]:
         """Per sample, the BAM handle each shard preps on (opening the
-        shards' handles as the first sharded prep does)."""
-        if self.n_dev == 1:
-            return [[s.bam] for s in self.samples]
+        shards' handles as the first prep does)."""
         return [[v.bam for v in views] for views in self._shard_views()]
+
+    def _prep_width(self) -> int:
+        """Prep jobs in flight at once: ``prep_workers``, else
+        ``SVT_PREP_WORKERS``, else as many (sample, shard) jobs as the
+        usable cores hold at the handles' decode fan-out. Each
+        concurrent prep launches its handle's native decode threads, so
+        the two knobs share the host's usable cores, not each assume
+        they own them."""
+        dec = max(
+            (getattr(s.bam, "_threads", 1) for s in self.samples),
+            default=1,
+        )
+        return (
+            self._prep_workers
+            or int(os.environ.get("SVT_PREP_WORKERS", "0"))
+            or max(
+                1,
+                min(
+                    len(self.samples) * self.n_dev,
+                    len(os.sched_getaffinity(0)) // max(dec, 1),
+                ),
+            )
+        )
 
     def _get_prep_pool(self):
         """Lazy prep pool: several samples on one device, or every
@@ -495,25 +517,7 @@ class TorchEngine:
         from concurrent.futures import ThreadPoolExecutor
 
         if self._prep_pool is None:
-            # auto-size against the decode fan-out: each concurrent
-            # prep launches its handle's native decode threads, so the
-            # two knobs must share the host's usable cores, not each
-            # assume they own them
-            dec = max(
-                (getattr(s.bam, "_threads", 1) for s in self.samples),
-                default=1,
-            )
-            workers = (
-                self._prep_workers
-                or int(os.environ.get("SVT_PREP_WORKERS", "0"))
-                or max(
-                    1,
-                    min(
-                        len(self.samples) * self.n_dev,
-                        len(os.sched_getaffinity(0)) // max(dec, 1),
-                    ),
-                )
-            )
+            workers = self._prep_width()
             self._prep_pool = ThreadPoolExecutor(max_workers=workers)
             # the pool must not outlive the engine (close() is the
             # explicit path; the finalizer covers dropped engines)

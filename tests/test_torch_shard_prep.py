@@ -14,7 +14,11 @@ the same file that shares the parsed indexes. These tests hold:
   windows, the indexes shared and not rebuilt;
 - ``close()`` and a dropped engine freeing the extra handles, the
   engine working again after ``close()``, and a one-device engine
-  opening no handle and no pool;
+  opening no handle and no pool (two samples on its one handle fetching
+  in turn);
+- ``_reopen``'s use of ``BamFile``'s private index fields, pinned;
+- ``--cores N`` keeping handles × N decode threads within the usable
+  cores, and the handles opened following the pool's width;
 - ``-w`` evidence over 4 concurrent shards equal to one device's;
 - a CRAM sample and a sample on the pure-Python decoder staying on
   their one handle, prepped serially, with the same rows.
@@ -330,9 +334,118 @@ def test_one_device_engine_opens_no_handle_and_no_pool(files, monkeypatch):
     for kw in ({"device": "cpu"}, {"devices": ["cpu"]}):
         eng = TorchEngine([sample], chunk_size=CHUNK, **kw)
         eng.genotype_all(bps)
-        assert eng._prep_pool is None and eng._views is None
+        assert eng._prep_pool is None
         assert eng.shard_bams() == [[sample.bam]]
     assert opened == []
+
+
+def test_one_device_two_samples_on_one_handle_fetch_in_turn(files):
+    """One device, ``[sample, sample]``: both samples fetch on the one
+    handle, so they run one after the other in one job (no pool, even
+    with two workers asked for), each with the rows of the sample
+    alone."""
+    _, bams, vcf, _ = files
+    sample, bps = _sample(bams[0]), _bps(vcf)
+    with TorchEngine([sample, sample], chunk_size=CHUNK, device="cpu",
+                     prep_workers=2) as eng:
+        calls = _wrap_fetches([sample.bam])
+        both = _raw(eng, bps)
+        assert eng._prep_pool is None
+    spans = sorted((t0, t1) for _, _, t0, t1 in calls)
+    assert len(spans) == 2 * -(-N_EVENTS // CHUNK)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    with TorchEngine([sample], chunk_size=CHUNK, device="cpu") as one:
+        alone = _raw(one, bps)
+    for s in range(2):
+        assert both[s].tobytes() == alone[0].tobytes()
+
+
+@pytest.mark.parametrize("fine", [True, False], ids=["fine", "bai_only"])
+def test_reopen_pins_the_bamfile_internals(files, monkeypatch, fine):
+    """``_reopen`` hands the sample handle's parsed indexes to the new
+    handle through ``BamFile``'s private fields (its docstring names
+    them). The new handle must read them back through the public
+    surface: the same decode threads, the same fine index (or, where
+    the sample's failed, none and no attempt to build one), the same
+    BAI, its own native arena, and the sample handle's records."""
+    _, bams, vcf, _ = files
+    sidecar = bams[0] + ".fidx.npz"
+    if not fine and os.path.exists(sidecar):
+        os.unlink(sidecar)
+    built, real = [], native.NativeBam.build_fineidx
+
+    def build(*a, **k):
+        built.append(1)
+        if not fine:
+            raise OSError("no fine index")
+        return real(*a, **k)
+
+    monkeypatch.setattr(native.NativeBam, "build_fineidx", build)
+    sample = _sample(bams[0])
+    assert (sample.bam._get_fineidx() is not None) == fine
+    n_built = len(built)
+    h = teng._reopen(sample.bam)
+    assert type(h) is BamFile and h.path == sample.bam.path
+    assert h._threads == sample.bam._threads
+    assert h._get_native() is not None
+    assert h._get_native() is not sample.bam._get_native()
+    assert h._get_fineidx() is sample.bam._get_fineidx()
+    assert h.bai is sample.bam.bai
+    lo, hi = 200_000, 1_500_000
+    got, want = h.fetch("chr1", lo, hi), sample.bam.fetch("chr1", lo, hi)
+    assert got.n == want.n > 0
+    for col in ("qname_hash", "pos", "flag", "tlen"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(want, col))
+    assert len(built) == n_built
+
+
+@pytest.mark.parametrize("cores", ["1", "2", "all"])
+def test_cores_keeps_the_decode_threads_within_the_usable_cores(
+        files, tmp_path, monkeypatch, cores):
+    """``--cores N`` over four devices: each handle decodes on N
+    threads, and the engine opens and runs at once as many handles as
+    the usable cores hold at N (at least one), never N jobs of N
+    threads."""
+    _, bams, vcf, _ = files
+    usable = len(os.sched_getaffinity(0))
+    n = usable + 1 if cores == "all" else int(cores)
+    seen = []
+    real = TorchEngine._prepare_shards
+
+    def prepare_shards(self, bps):
+        out = real(self, bps)
+        pool = self._prep_pool
+        seen.append((self._prep_width(), self.shard_bams()[0],
+                     pool._max_workers if pool is not None else 1))
+        return out
+
+    monkeypatch.setattr(TorchEngine, "_prepare_shards", prepare_shards)
+    argv = ["-i", vcf, "-B", bams[0], "-n", "50000", "--batch_size",
+            str(CHUNK), "--cores", str(n), "-o", str(tmp_path / "o.vcf")]
+    assert tclassic.main(argv, devices=["cpu"] * 4) == 0
+    assert seen
+    want = max(1, min(4, usable // n))
+    for width, handles, workers in seen:
+        assert width == workers == want
+        assert width * n <= max(n, usable)
+        assert len({id(h) for h in handles}) == width
+        assert [h._threads for h in handles] == [n] * 4
+
+
+def test_handles_follow_the_pool_width(files):
+    """Four shards on a pool of two: two handles, the sample's own for
+    shards 0-1 and a second for shards 2-3, with the rows of one
+    device."""
+    _, bams, vcf, _ = files
+    sample, bps = _sample(bams[0]), _bps(vcf)
+    with TorchEngine([sample], chunk_size=CHUNK, devices=["cpu"] * 4,
+                     prep_workers=2) as eng:
+        rows = _raw(eng, bps)
+        (handles,) = eng.shard_bams()
+    assert handles[0] is handles[1] is sample.bam
+    assert handles[2] is handles[3] and handles[2] is not sample.bam
+    with TorchEngine([sample], chunk_size=CHUNK, device="cpu") as one:
+        assert _raw(one, bps).tobytes() == rows.tobytes()
 
 
 def test_two_samples_over_three_shards_match_each_alone(files):
@@ -372,8 +485,9 @@ def test_one_sample_given_twice_shares_no_handle_in_flight(files):
 def test_evidence_output_over_four_shards_matches_one(files, tmp_path,
                                                       capsys):
     """``-w`` with the shards fetching concurrently (``--cores 4``: four
-    prep workers): the evidence BAM holds one device's records, and the
-    shard handles' export follows the engine's sink."""
+    decode threads per handle): the evidence BAM holds one device's
+    records, and the shard handles' export follows the engine's
+    sink."""
     _, bams, vcf, _ = files
     argv = ["-i", vcf, "-B", bams[0], "-n", "50000", "--batch_size",
             str(CHUNK), "--cores", "4"]
