@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of svtyper_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py                # one card: phases 1-17
-    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10, 13, 14, 16
+    python3 chip_smoke.py                # one card: phases 1-18
+    python3 chip_smoke.py --multi-card   # two or more cards: 1, 2, 5-7, 10, 13, 14, 16, 18
 
 Drives the port's shipped command (``svtyper_tpu_torch.cli.classic``),
 its tools (``svtyper_tpu_torch.tools``), its full-column device step
 (``svtyper_tpu_torch.parallel``) and its console scripts on the card and
-checks them end to end, in seventeen phases; any failure exits
-non-zero:
+checks them end to end, in eighteen phases (18 runs right after 5);
+any failure exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
@@ -130,7 +130,14 @@ non-zero:
     shard per chunk, and the bound; then the engine's device profile
     over phase 5's records: H2D, step and D2H per chunk (CUDA events)
     and the device's busy share over a ``genotype_stream`` pass
-    (torch.profiler).
+    (torch.profiler);
+18. the card's first use: the shipped command in two fresh child
+    processes on every visible card over phase 5's records, each
+    byte-identical to phase 5's in-process output, with classify and GL
+    launches = chunks x cards; logs each run's first chunk, send, the
+    warm-up's own wall and the first send's wait for it, and the
+    warm-up's steps (``gt/engine.py::warm_devices``, which the command
+    starts before it reads its inputs).
 
 The port runs with jax and the JAX package (``svtyper_tpu``) refused,
 and neither may be loaded at the end.
@@ -138,7 +145,7 @@ and neither may be loaded at the end.
 Each phase that drives the CLI, a tool or the full-column step zeroes
 both kernels' counts (``gl_kernel.LAUNCHES`` and
 ``classify_kernel.LAUNCHES``) just before and reads them just after
-(phases 7 and 11 read a child process's counts from the engine's
+(phases 7, 11 and 18 read a child process's counts from the engine's
 ``classify_launches`` and ``gl_launches`` in its ``SVT_CLI_STATS``,
 phase 16 its bench child's line: its engine passes' and CLI row's), and
 fails unless each kernel ran as often as
@@ -148,10 +155,10 @@ per step and shard), phase 14 neither. The kernel line reports their
 sums; phase 17's comparisons are not counted.
 
 ``--multi-card`` is the check for a host with several cards: it runs
-only the phases that span cards (6, 7, 10, 13, 14 and the cells of
-more than one chip in 16) and the single-card phase 5 they are
-compared with, and prints no kernel line (phases 3 and 17 measure the
-kernels).
+only the phases that span cards (6, 7, 10, 13, 14, the cells of more
+than one chip in 16, and 18 on every card) and the single-card phase 5
+they are compared with, and prints no kernel line (phases 3 and 17
+measure the kernels).
 
 Prints diagnostics, then the card's name and power limit, one JSON line
 describing each kernel, and last the result line
@@ -674,6 +681,55 @@ def phase_multihost(torch, K, wgs):
                st["total_wall_s"]))
     log("phase 7: 2 ranks over gloo: rank 0 byte-identical to phase 5, "
         "rank 1 empty; both processes %.2f s" % wall)
+
+
+def phase_fresh_cli(torch, K, wgs):
+    """Phase 18: the shipped command in two fresh child processes on
+    every visible card, each card's first use in the process; their
+    launches added to ``K``."""
+    bam, tiled, lib, want = wgs
+    n_dev = torch.cuda.device_count()
+    n_chunks = -(-N_RECORDS // CHUNK)
+    for r in (1, 2):
+        out = os.path.join(WORK, "wgs_fresh%d.vcf" % r)
+        stats = os.path.join(WORK, "stats_fresh%d.json" % r)
+        err = os.path.join(WORK, "fresh%d.err" % r)
+        env = dict(os.environ, PYTHONPATH=ROOT, SVT_CLI_STATS=stats)
+        t0 = time.time()
+        with open(err, "w") as fh:
+            try:
+                rc = subprocess.run(
+                    [sys.executable, "-c", _RANK, "-i", tiled, "-B", bam,
+                     "-o", out, "-l", lib], cwd=ROOT, env=env,
+                    stdout=subprocess.DEVNULL, stderr=fh,
+                    timeout=RANK_TIMEOUT_S).returncode
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+        wall = time.time() - t0
+        if rc != 0:
+            with open(err) as fh:
+                check(False, "phase 18: run %d: exit %s\n%s"
+                      % (r, rc, fh.read()[-3000:]))
+        with open(stats) as fh:
+            st = json.load(fh)
+        check(read_bytes(out) == read_bytes(want),
+              "phase 18: run %d: output differs from phase 5's" % r)
+        check(st["chunks"] == n_chunks
+              and st["classify_launches"] == st["gl_launches"]
+              == n_chunks * n_dev,
+              "phase 18: run %d: %d classify and %d GL launches for %d "
+              "chunks x %d cards" % (r, st["classify_launches"],
+                                     st["gl_launches"], st["chunks"], n_dev))
+        K.add(st["gl_launches"], st["classify_launches"])
+        log("phase 18: run %d, a fresh process on %d card(s): byte-identical "
+            "to phase 5; %d chunks, %d classify and %d GL launches; first "
+            "chunk %.6f s, %s; warm-up %.6f s, the first send's wait for it "
+            "%.6f s; whole command %.6f s (%.2f s with the interpreter's "
+            "start); warm-up steps, s: %s"
+            % (r, n_dev, st["chunks"], st["classify_launches"],
+               st["gl_launches"], st["first_chunk_s"], stats_line(st),
+               st["warm_s"], st["warm_wait_s"], st["total_wall_s"], wall,
+               json.dumps(st["warm_parts"], sort_keys=True)))
 
 
 def phase_profile(classic, K, golden_out):
@@ -1493,9 +1549,9 @@ def phase_classify(torch, K, common, gl_bench, classify_bench, wgs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="phases 1, 2, 5-7, 10, 13, 14 and 16 on a host "
-                         "with two or more cards (phase 16 runs the cells "
-                         "of more than one chip)")
+                    help="phases 1, 2, 5-7, 10, 13, 14, 16 and 18 on a "
+                         "host with two or more cards (phase 16 runs the "
+                         "cells of more than one chip)")
     multi_card = ap.parse_args(argv).multi_card
     sys.meta_path.insert(0, _RefuseJax())
     import torch
@@ -1536,7 +1592,9 @@ def main(argv=None) -> int:
             max_err, times = phase_kernel(torch, gl_kernel, parity, gl_bench)
             golden_out = phase_golden(classic, parity)
         wgs = phase_slice(torch, classic, K, fixture)
-        # after phase 5's timed CLI runs, so it takes no core from them
+        phase_fresh_cli(torch, K, wgs)
+        # after the timed CLI runs of phases 5 and 18, so it takes no
+        # core from them
         sims.append(start_bench_fixtures(bench, seeds.pop()))
         phase_multidevice(torch, classic, K, wgs)
         phase_multihost(torch, K, wgs)
@@ -1561,8 +1619,8 @@ def main(argv=None) -> int:
     check("jax" not in sys.modules, "jax was imported")
     check("svtyper_tpu" not in sys.modules, "svtyper_tpu was imported")
     if multi_card:
-        log("multi-card: phases 5-7, 10, 13, 14 and 16 ok on %d cards, %d "
-            "classify and %d GL launches"
+        log("multi-card: phases 5-7, 10, 13, 14, 16 and 18 ok on %d "
+            "cards, %d classify and %d GL launches"
             % (torch.cuda.device_count(), K.total["classify"],
                K.total["gl"]))
         log(smi)

@@ -143,6 +143,18 @@ def sv_genotype(
     all-gathered over gloo, and rank 0 formats and writes the single
     VCF; the caller leaves the group with ``multihost.destroy()``."""
     t0 = time.time()
+    if engine_kind == "torch":
+        # wake the cards while the inputs are read: the engine adopts
+        # this warm-up and its first send joins it (gt/engine.py); a
+        # CUDA run first checks the native decoder the engine requires
+        from svtyper_tpu_torch.bamio.native import require_lib
+        from svtyper_tpu_torch.gt.engine import resolve_devices, warm_devices
+
+        devices, dtype = resolve_devices(device, devices, dtype)
+        device = None
+        if devices[0].type == "cuda":
+            require_lib()
+        warm_devices(devices)
     from svtyper_tpu_torch.parallel.multihost import (
         allgather_rows,
         initialize_from_env,
@@ -869,7 +881,9 @@ def _write_stats(engine, n_done, t_gt, t0, t_first, gather_s) -> None:
     checkpoint chunks included, 0 on a multihost rank that writes
     nothing); gather_s is the time in the multihost all-gather; the
     engine's stats add classify_launches and gl_launches, its CUDA
-    classify and GL kernel launches."""
+    classify and GL kernel launches, warm_s and warm_wait_s, the
+    warm-up's wall and the first send's wait for it, and warm_parts,
+    the warm-up's steps in seconds (``gt/engine.py::warm_devices``)."""
     stats_path = os.environ.get("SVT_CLI_STATS")
     if not stats_path:
         return
@@ -889,8 +903,10 @@ def _write_stats(engine, n_done, t_gt, t0, t_first, gather_s) -> None:
         payload.update(
             {k: engine.stats[k]
              for k in ("prep_s", "send_s", "sync_s", "reads", "pairs",
-                       "chunks", "classify_launches", "gl_launches")}
+                       "chunks", "classify_launches", "gl_launches",
+                       "warm_s", "warm_wait_s")}
         )
+        payload["warm_parts"] = engine.warm_parts
     payload["native_perf"] = perf_counters()
     with open(stats_path, "w") as fh:
         json.dump(payload, fh)

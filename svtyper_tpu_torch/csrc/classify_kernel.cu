@@ -361,3 +361,15 @@ extern "C" int svt_classify_compact(const void* wire, const void* offsets,
       static_cast<float*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
+
+// Makes `device` this library's current card and loads the module of
+// classify_compact_kernel there without a launch, as svt_warm of
+// gl_kernel.cu does for its kernel. Returns the first error, 0 on
+// success.
+extern "C" int svt_warm(int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  return static_cast<int>(
+      cudaFuncGetAttributes(&attr, classify_compact_kernel));
+}

@@ -231,3 +231,16 @@ extern "C" int svt_gl_rows(const void* counts, const void* is_dup,
       n_rows, split_weight, disc_weight, t);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Makes `device` this library's current card and loads the module of
+// gl_rows_kernel there without a launch (CUDA loads a module lazily, at
+// its kernel's first launch otherwise); the first call on a card also
+// creates its primary context. The engine calls it from a warm-up thread
+// (gt/engine.py::warm_devices) through ctypes, which drops the
+// interpreter lock for the call. Returns the first error, 0 on success.
+extern "C" int svt_warm(int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  return static_cast<int>(cudaFuncGetAttributes(&attr, gl_rows_kernel));
+}

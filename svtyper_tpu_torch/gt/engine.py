@@ -27,12 +27,19 @@ On CUDA the engine needs the native BAM decoder and raises when it did
 not build or load (``bamio.native.require_lib``): the pure-Python
 decoder would bound every chunk at ~100x the time, without any other
 sign.
+
+A card's first use in a process (its context, the kernel modules, the
+pinned host allocator, the sample's density upload) runs on warm-up
+threads (``warm_devices``) that the engine starts when it is built and
+that the shipped command starts earlier still, before it reads its
+inputs; the first send joins them.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import threading
 import time
 import weakref
 from typing import Dict, List, Optional, Tuple
@@ -43,6 +50,7 @@ import torch
 from svtyper_tpu_torch.bamio.bam import BamFile
 from svtyper_tpu_torch.bamio.native import require_lib
 from svtyper_tpu_torch.breakpoints import Breakpoint
+from svtyper_tpu_torch.evidence.device import _prob_mapq_table
 from svtyper_tpu_torch.evidence.extract import (
     COMPACT_KEYS,
     VARS_BOOL,
@@ -53,10 +61,14 @@ from svtyper_tpu_torch.evidence.extract import (
 from svtyper_tpu_torch.models.bayes import GT_STRINGS, GenotypeResult
 from svtyper_tpu_torch.stats.library import Sample
 from svtyper_tpu_torch.ops.gl import genotype_batch, log_choose_table
-from svtyper_tpu_torch.ops import classify_kernel, gl_kernel
+from svtyper_tpu_torch.ops import _build, classify_kernel, gl_kernel
 from svtyper_tpu_torch.ops.classify_kernel import classify_wire, wire_rows
 
 MAX_N_TABLE = 1 << 17  # log-choose table span; QR+QA beyond this clamps
+KERNELS = ("classify_kernel", "gl_kernel")  # the step's, csrc/<name>.cu
+# the warm-up's pinned host block: a shard's wire at chunk 1,024 on a
+# 30x sample is ~2 MB
+WARM_BLOCK_BYTES = 1 << 21
 
 
 def _repad_compact(c, r_pad: int, f_pad: int, n_var: int):
@@ -184,6 +196,169 @@ def local_cuda_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def resolve_devices(device=None, devices=None, dtype=None):
+    """An engine's ``device`` (one) or ``devices`` (a list, repeats
+    allowed; every visible CUDA device when both are None) → (the
+    resolved ``torch.device`` list, the float dtype); refuses what the
+    port cannot run. The CPU never touches ``torch.cuda``."""
+    if device is not None and devices is not None:
+        raise ValueError("pass device (one) or devices (a list), not both")
+    if devices is None:
+        devices = [device] if device is not None else local_cuda_devices()
+    resolved = [_resolve_device(d, dtype) for d in devices]
+    if not resolved:
+        raise ValueError("no devices")
+    if len({(d.type, dt) for d, dt in resolved}) != 1:
+        raise ValueError("devices must be of one kind: %s" % (devices,))
+    return [d for d, _ in resolved], resolved[0][1]
+
+
+class _Warm:
+    """A daemon thread running ``fn(parts)``; ``fn`` adds the seconds of
+    each of its steps to ``parts``. ``join`` waits and re-raises what
+    ``fn`` raised; ``wait`` only waits."""
+
+    def __init__(self, name: str, fn) -> None:
+        self.parts: Dict[str, float] = {}
+        self.result = None
+        self.error: Optional[BaseException] = None
+        self.t0 = time.time()
+        self.t1: Optional[float] = None
+        self._thread = threading.Thread(target=self._run, args=(fn,),
+                                        name=name, daemon=True)
+        self._thread.start()
+
+    def _run(self, fn) -> None:
+        try:
+            self.result = fn(self.parts)
+        except BaseException as e:  # handed to whoever joins
+            self.error = e
+        finally:
+            self.t1 = time.time()
+
+    def wait(self) -> None:
+        self._thread.join()
+
+    def join(self):
+        self.wait()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def _step(parts: Dict[str, float], name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds added to ``parts[name]``."""
+    t0 = time.time()
+    out = fn(*args, **kwargs)
+    parts[name] = parts.get(name, 0.0) + time.time() - t0
+    return out
+
+
+def _wake(dev: torch.device, parts: Dict[str, float]) -> None:
+    """What a card's first send would do before its first copy, but
+    torch's lazy CUDA init and the density upload: build (where needed)
+    and ``dlopen`` both kernel libraries, load each kernel's module onto
+    the card through its ``svt_warm`` (the first creates the card's
+    primary context; ctypes drops the interpreter lock for the call),
+    then a block of a wire's size from the pinned host allocator, left
+    in its cache, and the classifier's prob_mapq table."""
+    for name in KERNELS:
+        _step(parts, "libs_s", _build.load, name)
+    for name in KERNELS:
+        _step(parts, "modules_s", _build.warm, name, dev.index)
+    with torch.cuda.device(dev):
+        _step(parts, "pinned_s", torch.empty, WARM_BLOCK_BYTES,
+              dtype=torch.uint8, pin_memory=True)
+        _step(parts, "tables_s", _prob_mapq_table, dev, torch.float32)
+
+
+# each CUDA card's warm-up, started at most once per process
+_WOKEN: Dict[torch.device, _Warm] = {}
+_WOKEN_LOCK = threading.Lock()
+
+
+class Warmup:
+    """What ``warm_devices`` started for one caller: its cards' warm-ups
+    (each shared by every caller in the process) and the upload of its
+    samples' density tables."""
+
+    def __init__(self, cards: Dict[torch.device, _Warm],
+                 dens: Optional[_Warm]) -> None:
+        self.cards = cards
+        self.dens = dens
+
+    def _all(self) -> List[_Warm]:
+        return list(self.cards.values()) + (
+            [self.dens] if self.dens is not None else [])
+
+    def join(self) -> Dict[Tuple[int, torch.device], torch.Tensor]:
+        """Waits for every part → the uploaded density tables, keyed as
+        ``TorchEngine._dens_for`` keys them; re-raises a part's error."""
+        for w in self.cards.values():
+            w.join()
+        return self.dens.join() if self.dens is not None else {}
+
+    def wait(self) -> None:
+        for w in self._all():
+            w.wait()
+
+    def busy_s(self) -> float:
+        """Seconds during which at least one of the finished parts ran."""
+        spans = sorted((w.t0, w.t1) for w in self._all() if w.t1 is not None)
+        busy, end = 0.0, float("-inf")
+        for t0, t1 in spans:
+            busy += max(0.0, t1 - max(t0, end))
+            end = max(end, t1)
+        return busy
+
+    def parts(self) -> Dict[str, Dict[str, float]]:
+        """The seconds of each step: per card, and ``dens``."""
+        out = {str(d): dict(w.parts) for d, w in self.cards.items()}
+        if self.dens is not None:
+            out["dens"] = dict(self.dens.parts)
+        return out
+
+
+def warm_devices(devices, samples=()) -> Warmup:
+    """Starts, off the main thread, the first use of each CUDA card in
+    ``devices`` (``_wake``: once per process and card, on a daemon thread
+    of its own, so several cards come up side by side) and the upload of
+    each of ``samples``' density tables to each card (a thread per call,
+    after the cards' warm-ups), the tensors ``TorchEngine._dens_for``
+    would upload; runs torch's lazy CUDA init on the calling thread
+    first. Devices of another kind are left alone: a CPU run never
+    touches ``torch.cuda``. Nothing is launched, so the kernels' launch
+    counts do not move."""
+    cards = sorted({torch.device(d) for d in devices
+                    if torch.device(d).type == "cuda"}, key=str)
+    if cards:
+        # torch's lazy init keeps the interpreter lock: on a thread
+        # beside a busy main thread it took 439 ms against 79 alone and
+        # held the main thread back 362 ms, and beside a card's context
+        # creation it waited in CUDA, lock held (PERF.md §6); so it
+        # runs here, before the cards' threads start
+        torch.cuda.init()
+    warms = {}
+    with _WOKEN_LOCK:
+        for dev in cards:
+            if dev not in _WOKEN:
+                _WOKEN[dev] = _Warm("svt-warm-%s" % dev,
+                                    lambda parts, d=dev: _wake(d, parts))
+            warms[dev] = _WOKEN[dev]
+    if not cards or not samples:
+        return Warmup(warms, None)
+    samples = list(samples)
+
+    def upload(parts):
+        for w in warms.values():
+            w.wait()  # join() re-raises a card's error
+        return {(si, dev): _step(parts, "dens_s", dens_state,
+                                 s.dens_matrix(), dev, torch.float32)
+                for dev in cards for si, s in enumerate(samples)}
+
+    return Warmup(warms, _Warm("svt-warm-dens", upload))
+
+
 class TorchEngine:
     """Chunked genotyping over one or more devices of one kind.
 
@@ -214,17 +389,7 @@ class TorchEngine:
         dtype: Optional[torch.dtype] = None,
         devices: Optional[list] = None,
     ) -> None:
-        if device is not None and devices is not None:
-            raise ValueError("pass device (one) or devices (a list), not both")
-        if devices is None:
-            devices = [device] if device is not None else local_cuda_devices()
-        resolved = [_resolve_device(d, dtype) for d in devices]
-        if not resolved:
-            raise ValueError("no devices")
-        if len({(d.type, dt) for d, dt in resolved}) != 1:
-            raise ValueError("devices must be of one kind: %s" % (devices,))
-        self.devices = [d for d, _ in resolved]
-        self.dtype = resolved[0][1]
+        self.devices, self.dtype = resolve_devices(device, devices, dtype)
         self.n_dev = len(self.devices)
         chunk_size = -(-chunk_size // self.n_dev) * self.n_dev
         self.samples = samples
@@ -237,6 +402,11 @@ class TorchEngine:
         self._cuda = self.devices[0].type == "cuda"
         if self._cuda:
             require_lib()
+        # the cards' first use and the density uploads, joined by the
+        # first send (the CLI may have started the cards' part already)
+        self._warm = (warm_devices(self.devices, samples) if self._cuda
+                      else None)
+        self.warm_parts: Dict[str, Dict[str, float]] = {}
         # per-device state: the f64 log-choose table (the float64 GL
         # branch only; the float32 stage takes lc from lgamma) and each
         # sample's insert densities, keyed by (sample, device)
@@ -268,6 +438,8 @@ class TorchEngine:
             "variants": 0,
             "classify_launches": 0,
             "gl_launches": 0,
+            "warm_s": 0.0,  # the warm-up's own wall (warm_devices)
+            "warm_wait_s": 0.0,  # the first send's wait for it
         }
 
     def _step(self, wire: torch.Tensor, geom, si: int, n_var: int):
@@ -536,13 +708,26 @@ class TorchEngine:
             return host
         return host.pin_memory().to(dev, non_blocking=True)
 
+    def _join_warm(self) -> None:
+        """Waits for the warm-up (re-raising its error) and takes its
+        density tables into ``_dens_for``'s cache."""
+        t0 = time.time()
+        self._dens_cache.update(self._warm.join())
+        self.stats["warm_wait_s"] += time.time() - t0
+        self.stats["warm_s"] += self._warm.busy_s()
+        self.warm_parts = self._warm.parts()
+        self._warm = None
+
     def _send(self, payloads):
         """Device stage: host→device copies + step launches, no sync.
         Runs on the main thread; every shard of every sample is launched
         before any is collected, so devices overlap, and the device runs
         chunk k while chunk k+1 preps and chunk k-1 collects. Each
         shard's rows are copied back into a pinned buffer behind an
-        event that ``_collect`` waits on."""
+        event that ``_collect`` waits on. The first send joins the
+        warm-up first."""
+        if self._warm is not None:
+            self._join_warm()
         t0 = time.time()
         arrs = []
         for si, shards in enumerate(payloads):
@@ -602,8 +787,11 @@ class TorchEngine:
     def close(self) -> None:
         """Release host-side resources: the prep pool and the shards'
         extra BAM handles, whose block caches shrink every other open
-        handle's. Idempotent; the engine remains usable afterwards (both
-        are rebuilt lazily if needed)."""
+        handle's; waits for a warm-up still running. Idempotent; the
+        engine remains usable afterwards (both are rebuilt lazily if
+        needed)."""
+        if self._warm is not None:
+            self._warm.wait()
         if self._prep_pool is not None:
             self._prep_pool.shutdown(wait=False)
             self._prep_pool = None

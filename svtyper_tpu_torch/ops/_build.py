@@ -91,3 +91,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _libs[name] = lib
         return lib
+
+
+def warm(name: str, device: int) -> None:
+    """Loads the kernel module of ``csrc/<name>.cu`` onto CUDA device
+    ``device`` without launching it (its ``svt_warm``), creating the
+    card's primary context if none exists; raises on a CUDA error."""
+    fn = load(name).svt_warm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    rc = fn(device)
+    if rc != 0:
+        raise RuntimeError("%s: svt_warm(%d) failed: cudaError %d"
+                           % (name, device, rc))

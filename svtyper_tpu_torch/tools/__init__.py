@@ -29,7 +29,10 @@ a plain function that tests and ``chip_smoke.py`` call:
                        (``scripts/make_example_data.py``);
 - ``bench``            end-to-end variants/s of the engine and the CLI
                        against the float64 oracle, with the accuracy
-                       gate (``bench.py``).
+                       gate (``bench.py``);
+- ``first_use``        a card's first use in a fresh process split into
+                       its parts, each part's interpreter-lock share
+                       (CUDA only; no JAX counterpart).
 
 With no ``device`` a tool that drives the engine runs on CUDA and exits
 non-zero where there is none; the CPU runs only when a caller passes
